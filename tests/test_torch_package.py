@@ -69,6 +69,23 @@ def test_servers_without_gpu_raise(no_cuda):
         StreamingEnhancer(model)
 
 
+def test_train_slice_entry_points_without_gpu_raise(no_cuda):
+    from vibravox_tpu_torch.core.optim import adam
+    from vibravox_tpu_torch.data.bwe import BWEDataModule
+    from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
+    from vibravox_tpu_torch.models.melgan_discriminator import DiscriminatorMelGAN
+    from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
+    from vibravox_tpu_torch.tasks.eben import EBENTask
+
+    for make in (DiscriminatorEBENMultiScales, DiscriminatorMelGAN, BWEDataModule,
+                 lambda: MultiResolutionSTFTLoss((512,), (50,), (240,))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EBENTask(16000, EBENGenerator(device="cpu"),
+                 DiscriminatorEBENMultiScales(q=4, min_channels=8, device="cpu"), adam(), adam())
+
+
 def test_generator_keeps_float32_convolutions_out_of_tf32():
     """The generator's convolutions run with cuDNN's float32 precision set to
     IEEE whatever the caller's setting, which is restored after the call."""

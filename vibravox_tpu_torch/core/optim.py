@@ -1,0 +1,52 @@
+"""Optimizer factories with the JAX package's argument names (PyTorch).
+
+Counterpart of ``vibravox_tpu/core/optim.py``, whose optax chains copy
+``torch.optim`` semantics (``configs/lightning_module/optimizer/adam.yaml``:
+lr 3e-4, betas (0.5, 0.9)).  Here each factory returns a partial that builds
+the ``torch.optim`` optimizer over the parameters it is given, the
+reference's ``_partial_: true`` configs.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Iterable, Sequence
+
+import torch
+
+__all__ = ["adam", "adamw", "sgd"]
+
+OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
+
+
+def adam(
+    lr: float = 1e-3,
+    betas: Sequence[float] = (0.9, 0.999),
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    amsgrad: bool = False,
+) -> OptimizerFactory:
+    """``torch.optim.Adam`` (L2 added to the gradient, not decoupled)."""
+    return functools.partial(
+        torch.optim.Adam, lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+        amsgrad=amsgrad,
+    )
+
+
+def sgd(
+    lr: float = 1e-3, momentum: float = 0.0, weight_decay: float = 0.0, nesterov: bool = False
+) -> OptimizerFactory:
+    """``torch.optim.SGD``."""
+    return functools.partial(
+        torch.optim.SGD, lr=lr, momentum=momentum, weight_decay=weight_decay, nesterov=nesterov
+    )
+
+
+def adamw(
+    lr: float = 1e-3, betas: Sequence[float] = (0.9, 0.999), eps: float = 1e-8,
+    weight_decay: float = 0.01,
+) -> OptimizerFactory:
+    """``torch.optim.AdamW`` (decoupled weight decay)."""
+    return functools.partial(
+        torch.optim.AdamW, lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay
+    )

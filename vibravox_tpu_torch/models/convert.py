@@ -1,4 +1,4 @@
-"""Flax EBEN generator params -> this package's state dict.
+"""Flax EBEN params -> this package's state dicts.
 
 The JAX package keeps conv kernels channels-last (WIO ``(k, in, out)``) and
 weight-norm gains as ``(c,)`` vectors.  The port's modules use the reference
@@ -22,7 +22,22 @@ import torch
 
 from vibravox_tpu_torch.ops.pqmf import design_pqmf_bank
 
-__all__ = ["eben_generator_params_from_jax"]
+__all__ = [
+    "eben_generator_params_from_jax",
+    "eben_discriminator_params_from_jax",
+    "eben_train_state_from_jax",
+]
+
+
+def _put_wn(sd: Dict[str, np.ndarray], name: str, node: Mapping[str, Any], transposed: bool = False) -> None:
+    """A weight-norm conv node -> ``original0`` (gains), ``original1``
+    (direction, relaid from WIO unless the conv is transposed) and the bias
+    when it has one."""
+    v = np.asarray(node["kernel_v"])
+    sd[f"{name}.parametrizations.weight.original0"] = np.asarray(node["kernel_g"]).reshape(-1, 1, 1)
+    sd[f"{name}.parametrizations.weight.original1"] = v if transposed else np.transpose(v, (2, 1, 0))
+    if "bias" in node:
+        sd[f"{name}.bias"] = np.asarray(node["bias"])
 
 
 def eben_generator_params_from_jax(
@@ -40,21 +55,56 @@ def eben_generator_params_from_jax(
     def put_conv(name: str, node: Mapping[str, Any]) -> None:
         sd[f"{name}.weight"] = np.transpose(np.asarray(node["kernel"]), (2, 1, 0))
 
-    def put_wn(name: str, node: Mapping[str, Any], transposed: bool = False) -> None:
-        v = np.asarray(node["kernel_v"])
-        sd[f"{name}.parametrizations.weight.original0"] = np.asarray(node["kernel_g"]).reshape(-1, 1, 1)
-        sd[f"{name}.parametrizations.weight.original1"] = v if transposed else np.transpose(v, (2, 1, 0))
-
     put_conv("first_conv", p["first_conv"])
     put_conv("last_conv", p["last_conv"])
-    put_wn("latent_conv.1", p["latent_conv_0"])
-    put_wn("latent_conv.3", p["latent_conv_1"])
+    _put_wn(sd, "latent_conv.1", p["latent_conv_0"])
+    _put_wn(sd, "latent_conv.3", p["latent_conv_1"])
     for i in range(3):
-        put_wn(f"encoder_blocks.{i}.conv", p[f"enc_{i}"]["conv"])
-        put_wn(f"decoder_blocks.{i}.conv_trans", p[f"dec_{i}"]["conv_trans"], transposed=True)
+        _put_wn(sd, f"encoder_blocks.{i}.conv", p[f"enc_{i}"]["conv"])
+        _put_wn(sd, f"decoder_blocks.{i}.conv_trans", p[f"dec_{i}"]["conv_trans"], transposed=True)
         for blk, key in ((f"encoder_blocks.{i}", f"enc_{i}"), (f"decoder_blocks.{i}", f"dec_{i}")):
             for j in range(3):
                 node = p[key][f"residual_{j}"]
-                put_wn(f"{blk}.residuals.{j}.dilated_conv", node["dilated_conv"])
-                put_wn(f"{blk}.residuals.{j}.pointwise_conv", node["pointwise_conv"])
+                _put_wn(sd, f"{blk}.residuals.{j}.dilated_conv", node["dilated_conv"])
+                _put_wn(sd, f"{blk}.residuals.{j}.pointwise_conv", node["pointwise_conv"])
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def eben_discriminator_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``DiscriminatorEBENMultiScales`` params (with or without the outer
+    ``"params"`` key) -> state dict for
+    ``vibravox_tpu_torch.models.eben_discriminator.DiscriminatorEBENMultiScales``.
+
+    The inverse of the JAX package's ``eben_discriminator_params_from_torch``:
+    stage 0 of each discriminator is ``Sequential(pad, conv, leaky)`` (conv at
+    index 1), the middle stages ``Sequential(conv, leaky)`` (index 0), and the
+    certainty conv stands alone."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    for idx, dilation in enumerate((1, 2, 3)):
+        node = p[f"pqmf_disc_{dilation}"]
+        prefix = f"pqmf_discriminators.{idx}.discriminator"
+        _put_wn(sd, f"{prefix}.0.1", node["conv_0"])
+        for i in range(1, 7):
+            _put_wn(sd, f"{prefix}.{i}.0", node[f"conv_{i}"])
+        _put_wn(sd, f"{prefix}.7", node["conv_7"])
+    node = p["melgan"]
+    _put_wn(sd, "melgan_discriminator.discriminator.0.1", node["conv_0"])
+    for i in range(1, 6):
+        _put_wn(sd, f"melgan_discriminator.discriminator.{i}.0", node[f"conv_{i}"])
+    _put_wn(sd, "melgan_discriminator.discriminator.6", node["conv_6"])
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def eben_train_state_from_jax(state: Any, m: int = 4, n: int = 32) -> Dict[str, Any]:
+    """A JAX ``EBENTrainState`` (leaves as numpy arrays, ``jax.device_get``)
+    -> ``{"generator": state dict, "discriminator": state dict, "step": int,
+    "atomic_norms_ema": float32 tensor}``, which ``EBENTask.load_state``
+    takes.  The optimizer states are not carried over: the port's Adams
+    start from zero moments, as a fresh JAX state does."""
+    return {
+        "generator": eben_generator_params_from_jax(state.gen_params, m=m, n=n),
+        "discriminator": eben_discriminator_params_from_jax(state.disc_params),
+        "step": int(np.asarray(state.step)),
+        "atomic_norms_ema": torch.tensor(np.asarray(state.atomic_norms_ema, dtype=np.float32)),
+    }

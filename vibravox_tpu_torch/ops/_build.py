@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<digest>.so``
-at the repository root; the digest covers the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  The library is
+at the repository root; the digest covers the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source rebuilds and an unchanged
+one is reused.  The library is
 loaded with ``ctypes``: the wrappers pass every pointer and the stream as
 ``c_void_p``.  Nothing here runs at import time, so the CPU-only tests can
 import every module.
@@ -21,7 +22,9 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["build", "load"]
+__all__ = ["build", "build_all", "load", "SOURCES"]
+
+SOURCES = ("fused_residual", "fused_residual_bwd", "framed_dft")  # K1, K2, K3 and K4
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -51,7 +54,8 @@ def build(name: str) -> dict:
     library path, the seconds the build took (0.0 when reused) and the ptxas
     report.  Raises if ``nvcc`` is missing or the build fails."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_FLAGS).encode()).hexdigest()[:12]
     target = _BUILD_DIR / f"lib{name}-{digest}.so"
     log = target.with_suffix(".log")
     if target.is_file():
@@ -70,6 +74,16 @@ def build(name: str) -> dict:
     os.replace(tmp, target)  # atomic: a concurrent loader never sees a partial file
     log.write_text(proc.stdout)
     return {"path": str(target), "seconds": seconds, "ptxas": proc.stdout}
+
+
+def build_all(names) -> Dict[str, dict]:
+    """``build`` for several sources at once, one ``nvcc`` each, all started
+    together.  Raises the first build failure."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

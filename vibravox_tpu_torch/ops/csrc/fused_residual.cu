@@ -38,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -46,28 +48,6 @@ constexpr int kOcb = 8;    // output channels per thread
 constexpr int kPb = 4;     // time positions per thread
 constexpr int kIc = 16;    // input channels per staged weight chunk
 constexpr int kWsPad = 4;  // keeps float4 alignment, spreads staging stores over banks
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// f32 value rounded to the precision of the storage type T
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
-
-__device__ __forceinline__ int reflect(int g, int t_len) {
-  if (g < 0) g = -g;
-  if (g > t_len - 1) g = 2 * (t_len - 1) - g;
-  return g;
-}
 
 template <int C, int TILE>
 constexpr size_t smem_floats() {
