@@ -7,7 +7,8 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
 
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: every kernel source (K1; K2; K3 and K4), one nvcc each, all
-   started together, with the nvcc time and the ptxas resource report;
+   started together, with the nvcc time and the ptxas resource report of
+   each kernel;
 3. k1_parity: the fused residual stack (K1) against its plain PyTorch version
    at the serving shapes in float32 (atol 2e-5 of scale, TF32 off for the
    plain convolutions) and bfloat16 (2e-2 of scale), plus ragged T = 1001 and
@@ -29,7 +30,9 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
    at the same shapes; K1 and K2 times;
 8. k3_k4_parity: the framed-DFT magnitude (K3) and its backward (K4)
    against ``torch.stft`` and its autograd at B = 32, T = 39904, the three
-   loss resolutions, with kernel, plain, library and bound times;
+   loss resolutions, and at a ragged T, B = 1, T just above fft / 2 and
+   hops below 32; K4 bit-equal over two runs; kernel, plain, library and
+   bound times of whole wrapper calls, in turns;
 9. train_parity: one seeded float32 train step at small sizes on the card
    (K1-K4) against the same step on the CPU (the plain versions);
 10. train: the training path.  ``Trainer.fit`` of the full ``eben.yaml``
@@ -154,7 +157,7 @@ def phase_build() -> None:
         emit({"phase": "build", "source": name, "wall_seconds_all_sources": wall,
               "nvcc_seconds": info["seconds"],
               "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
-                        if "Used" in ln or "spill" in ln]})
+                        if any(w in ln for w in ("Compiling entry", "Used", "spill"))]})
 
 
 def phase_k1_parity() -> list:
@@ -418,61 +421,94 @@ def phase_k2_parity() -> list:
 
 
 def dft_bound_ms(b: int, t: int, fft: int, hop: int, win: int, backward: bool):
-    """(operations ms, bytes ms) of K3 (4 B F win K FLOP: re and im over the
-    win window taps) or K4 (twice that: the re/im recompute and the frame
-    gradients), float32; x (and gom) read, the output written, the window
-    rows read once."""
+    """(operations ms, bytes ms) of K3 or K4, float32.  Operations: an FFT's
+    2.5 fft log2(fft) FLOP per real frame for K3, twice that for K4 (the
+    spectrum again and the inverse FFT).  Bytes, each once: x read and the
+    magnitudes written for K3; x, g and mag read and dx written for K4."""
     frames, bins = 1 + t // hop, fft // 2 + 1
-    flops = 4 * b * frames * win * bins * (2 if backward else 1)
-    nbytes = 4 * (2 * b * t + b * frames * bins + 2 * win * bins)
+    flops = 2.5 * fft * math.log2(fft) * b * frames * (2 if backward else 1)
+    nbytes = 4 * ((2 * b * t + 2 * b * frames * bins) if backward else (b * t + b * frames * bins))
     return flops / PEAK_FLOPS[torch.float32] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# (B, T, fft, hop, win, silence) held against the plain versions besides the
+# train step's shapes: a ragged T, B = 1, T just above fft / 2, hops below 32,
+# and near silence (x scaled by 1e-7) over `silence` samples from T / 3,
+# longer than the window, so whole frames clamp at eps and K4's gom is 0 there
+K3_K4_EXTRA = ((3, 4001, 512, 50, 240, 0), (1, 7777, 1024, 120, 600, 0), (2, 1025, 2048, 240, 1200, 0),
+               (2, 3000, 512, 16, 240, 0), (1, 700, 256, 1, 200, 0), (2, 12000, 512, 50, 240, 2048),
+               (2, 12000, 2048, 240, 1200, 4800), (2, 6000, 256, 16, 200, 1024))
+
+
+def check_k3_k4(x, g, fft, hop, win, row) -> torch.Tensor:
+    """K3 and K4 against their plain versions on x, and K4 twice on the same
+    inputs (bit-equal); raises on a disagreement.  Returns K3's magnitude."""
+    mag = framed_dft_magnitude(x, fft, hop, win)
+    ref = plain_framed_dft_magnitude(x, fft, hop, win)
+    dx = framed_dft_backward(x, mag, g, fft, hop, win)
+    dx2 = framed_dft_backward(x, mag, g, fft, hop, win)
+    ref_dx = plain_framed_dft_backward(x, g, fft, hop, win)
+    torch.cuda.synchronize()
+    row.update(k3_err_over_scale=rel_err(mag, ref), k3_tol=K3_TOL, k4_err_over_scale=rel_err(dx, ref_dx),
+               k4_tol=K4_TOL, k4_bit_equal_two_runs=torch.equal(dx, dx2),
+               clamped_bins=int((ref <= math.sqrt(1e-8)).sum()))
+    if not (mag.shape == ref.shape and math.isfinite(row["k3_err_over_scale"]) and row["k3_err_over_scale"] <= K3_TOL):
+        raise AssertionError(f"K3 disagrees with its plain version: {row}")
+    if not (dx.shape == x.shape and math.isfinite(row["k4_err_over_scale"]) and row["k4_err_over_scale"] <= K4_TOL):
+        raise AssertionError(f"K4 disagrees with its plain version: {row}")
+    if not row["k4_bit_equal_two_runs"]:
+        raise AssertionError(f"K4 is not bit-equal across two runs: {row}")
+    return mag
 
 
 def phase_k3_k4_parity() -> list:
     """K3 and K4 against their plain versions (torch.stft and its autograd)
-    at the train step's shapes, B = 32, T = 39904, each resolution; kernel,
-    plain and library times (torch.stft(...).abs() and its backward)."""
+    at the train step's shapes, B = 32, T = 39904, each resolution, and at
+    K3_K4_EXTRA; K4 bit-equal over two runs.  At the train step's shapes,
+    whole-wrapper times of the kernel, plain and library calls
+    (torch.stft(...).abs() and its backward), in turns."""
     rows = []
     gen = torch.Generator().manual_seed(7)
+    for b, t, fft, hop, win, silence in K3_K4_EXTRA:
+        x = torch.randn(b, t, generator=gen)
+        x[:, t // 3 : t // 3 + silence] *= 1e-7
+        g = torch.randn(b, 1 + t // hop, fft // 2 + 1, generator=gen).cuda()
+        row = {"fft": fft, "hop": hop, "win": win, "B": b, "T": t, "silence": silence, "extra": True}
+        check_k3_k4(x.cuda(), g, fft, hop, win, row)
+        if silence and not row["clamped_bins"]:
+            raise AssertionError(f"no frame clamped in a silent stretch: {row}")
+        emit({"phase": "k3_k4_parity", **row})
     x = (torch.randn(TRAIN_B, TRAIN_T, generator=gen) * 0.1).cuda()
     for fft, hop, win in RESOLUTIONS:
-        mag = framed_dft_magnitude(x, fft, hop, win)
-        ref = plain_framed_dft_magnitude(x, fft, hop, win)
-        g = (torch.randn(ref.shape, generator=gen) * 1e-3).cuda()
-        dx = framed_dft_backward(x, mag, g, fft, hop, win)
-        ref_dx = plain_framed_dft_backward(x, g, fft, hop, win)
-        torch.cuda.synchronize()
-        e3, e4 = rel_err(mag, ref), rel_err(dx, ref_dx)
-        row = {"fft": fft, "hop": hop, "win": win, "B": TRAIN_B, "T": TRAIN_T,
-               "frames": ref.shape[1], "bins": ref.shape[2],
-               "k3_err_over_scale": e3, "k3_tol": K3_TOL, "k4_err_over_scale": e4, "k4_tol": K4_TOL}
-        if not (mag.shape == ref.shape and math.isfinite(e3) and e3 <= K3_TOL):
-            raise AssertionError(f"K3 disagrees with its plain version: {row}")
-        if not (math.isfinite(e4) and e4 <= K4_TOL):
-            raise AssertionError(f"K4 disagrees with its plain version: {row}")
+        frames, bins = 1 + TRAIN_T // hop, fft // 2 + 1
+        g = (torch.randn(TRAIN_B, frames, bins, generator=gen) * 1e-3).cuda()
+        row = {"fft": fft, "hop": hop, "win": win, "B": TRAIN_B, "T": TRAIN_T, "frames": frames, "bins": bins}
+        mag = check_k3_k4(x, g, fft, hop, win, row)
         window = hann_window(win, device="cuda")
         xl = x.clone().requires_grad_(True)
         lib = torch.stft(xl, fft, hop_length=hop, win_length=win, window=window, center=True,
                          pad_mode="reflect", return_complex=True).abs()
         glib = g.transpose(1, 2).contiguous()
         times = {k: [] for k in ("k3", "p3", "l3", "k4", "p4", "l4")}
-        for _ in range(2):  # in turns; the median of each
-            times["k3"].append(cuda_ms(lambda: framed_dft_magnitude(x, fft, hop, win), iters=10))
+        for _ in range(3):  # in turns; the median of each
+            times["k3"].append(cuda_ms(lambda: framed_dft_magnitude(x, fft, hop, win), iters=20))
             times["p3"].append(cuda_ms(lambda: plain_framed_dft_magnitude(x, fft, hop, win), iters=10))
             times["l3"].append(cuda_ms(lambda: torch.stft(
                 x, fft, hop_length=hop, win_length=win, window=window, center=True,
-                pad_mode="reflect", return_complex=True).abs(), iters=10))
-            times["k4"].append(cuda_ms(lambda: framed_dft_backward(x, mag, g, fft, hop, win), iters=10))
+                pad_mode="reflect", return_complex=True).abs(), iters=20))
+            times["k4"].append(cuda_ms(lambda: framed_dft_backward(x, mag, g, fft, hop, win), iters=20))
             times["p4"].append(cuda_ms(lambda: plain_framed_dft_backward(x, g, fft, hop, win), iters=10))
             times["l4"].append(cuda_ms(lambda: torch.autograd.grad(lib, xl, glib, retain_graph=True),
-                                       iters=10))
+                                       iters=20))
         med = {k: float(np.median(v)) for k, v in times.items()}
         o3, b3 = dft_bound_ms(TRAIN_B, TRAIN_T, fft, hop, win, backward=False)
         o4, b4 = dft_bound_ms(TRAIN_B, TRAIN_T, fft, hop, win, backward=True)
         row.update(k3_ms=med["k3"], k3_plain_ms=med["p3"], k3_library_ms=med["l3"],
                    k3_ops_ms=o3, k3_bytes_ms=b3,
                    k4_ms=med["k4"], k4_plain_ms=med["p4"], k4_library_ms=med["l4"],
-                   k4_ops_ms=o4, k4_bytes_ms=b4)
+                   k4_ops_ms=o4, k4_bytes_ms=b4,
+                   k3_beats_library=med["k3"] < med["l3"], k4_beats_library=med["k4"] < med["l4"],
+                   times_ms=times)
         rows.append(row)
         emit({"phase": "k3_k4_parity", **row})
     return rows
@@ -672,7 +708,7 @@ def phase_train_profile() -> dict:
                 else "K2 fused_residual_bwd" if any(s in name for s in (
                     "unit_forward_kernel", "unit_backward_kernel", "reduce_partials_kernel"))
                 else "K3 framed_dft_magnitude" if "framed_dft_magnitude_kernel" in name
-                else "K4 framed_dft_backward" if "framed_dft_backward_kernel" in name
+                else "K4 framed_dft_backward" if "framed_dft_backward" in name  # both passes
                 else "cuDNN conv / GEMM" if any(s in low for s in ("conv", "gemm", "xmma", "cudnn", "sm90"))
                 else "other")
         groups[kind] = groups.get(kind, 0.0) + us
@@ -752,7 +788,8 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
         out["resolutions"] = [{k: r[k] for k in ("fft", "hop", "win", "frames", "bins",
                                                  f"{prefix}_ms", f"{prefix}_plain_ms",
                                                  f"{prefix}_library_ms", f"{prefix}_ops_ms",
-                                                 f"{prefix}_bytes_ms", f"{prefix}_err_over_scale")}
+                                                 f"{prefix}_bytes_ms", f"{prefix}_err_over_scale",
+                                                 f"{prefix}_beats_library")}
                               for r in dft_rows]
         return out
 

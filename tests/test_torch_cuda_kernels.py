@@ -19,8 +19,8 @@ version run in float32 on the same bf16 values: K2 rounds x1, x2, h1, dh2
 and dh1 to bf16 as the TPU kernel did, and returns dx and dW in bf16; the
 same rounding emulated on the CPU in float64 differs from the float32 plain
 backward by up to 2.2e-2 (dx) and 6.8e-2 (dW) of scale at C = 32, T = 700.
-K3 (the framed-DFT magnitude) 1e-5 of the largest magnitude: a direct sum
-against cuFFT; K4 (its backward) 2e-4 of the largest gradient.
+K3 (the framed-DFT magnitude) 1e-5 of the largest magnitude: one float32
+FFT against another (cuFFT); K4 (its backward) 2e-4 of the largest gradient.
 """
 
 import math
@@ -177,12 +177,17 @@ def test_residual_stack_autograd_runs_k1_and_k2(cuda):
 
 
 RESOLUTIONS = [(512, 50, 240), (1024, 120, 600), (2048, 240, 1200)]
+# (fft, hop, win, B, T): the loss's resolutions at two lengths, then a ragged
+# T, B = 1, T just above fft / 2, hops below 32 and the smallest and largest fft
+DFT_CASES = [(fft, hop, win, b, t) for fft, hop, win in RESOLUTIONS for b, t in [(2, 6000), (3, 39904)]] + [
+    (512, 50, 240, 2, 4001), (1024, 120, 600, 1, 7777), (2048, 240, 1200, 2, 1025),
+    (512, 16, 240, 2, 3000), (256, 1, 200, 1, 700), (64, 7, 64, 3, 33), (4096, 1000, 3000, 1, 9001),
+]
 
 
-@pytest.mark.parametrize("fft,hop,win", RESOLUTIONS)
-@pytest.mark.parametrize("b,t", [(2, 6000), (3, 39904)])
+@pytest.mark.parametrize("fft,hop,win,b,t", DFT_CASES)
 def test_framed_dft_kernels_match_plain(fft, hop, win, b, t, cuda):
-    gen = torch.Generator().manual_seed(fft)
+    gen = torch.Generator().manual_seed(fft + t)
     x = torch.randn(b, t, generator=gen).to(cuda)
     before = (framed_dft_magnitude.launches, framed_dft_backward.launches)
     mag = framed_dft_magnitude(x, fft, hop, win)
@@ -195,6 +200,48 @@ def test_framed_dft_kernels_match_plain(fft, hop, win, b, t, cuda):
     assert mag.shape == ref.shape == (b, 1 + t // hop, fft // 2 + 1)
     assert _rel_err(mag, ref) <= 1e-5
     assert dx.shape == x.shape and _rel_err(dx, ref_dx) <= 2e-4
+
+
+@pytest.mark.parametrize("fft,hop,win,silence", [(512, 50, 240, 2048), (2048, 240, 1200, 4800),
+                                                 (256, 16, 200, 1024)])
+def test_framed_dft_kernels_match_plain_over_silence(fft, hop, win, silence, cuda):
+    """Near silence (x scaled by 1e-7) over a stretch longer than the window:
+    whole frames clamp at eps, where K4's gom is 0 (mag <= sqrt(eps)) as the
+    plain autograd's gradient is."""
+    gen = torch.Generator().manual_seed(silence)
+    x = torch.randn(2, 12000, generator=gen)
+    x[:, 4000 : 4000 + silence] *= 1e-7
+    x = x.to(cuda)
+    mag = framed_dft_magnitude(x, fft, hop, win)
+    ref = plain_framed_dft_magnitude(x, fft, hop, win)
+    g = torch.randn(ref.shape, generator=gen).to(cuda)
+    dx = framed_dft_backward(x, mag, g, fft, hop, win)
+    ref_dx = plain_framed_dft_backward(x, g, fft, hop, win)
+    assert (ref <= math.sqrt(1e-8)).any()
+    assert _rel_err(mag, ref) <= 1e-5
+    assert _rel_err(dx, ref_dx) <= 2e-4
+
+
+def test_framed_dft_backward_is_deterministic(cuda):
+    x = torch.randn(4, 39904, generator=torch.Generator().manual_seed(9)).to(cuda)
+    for fft, hop, win in RESOLUTIONS:
+        mag = framed_dft_magnitude(x, fft, hop, win)
+        g = torch.randn(mag.shape, generator=torch.Generator().manual_seed(fft)).to(cuda)
+        assert torch.equal(framed_dft_backward(x, mag, g, fft, hop, win),
+                           framed_dft_backward(x, mag, g, fft, hop, win))
+
+
+def test_framed_dft_rejects_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(2, 3000, device=cuda)
+    with pytest.raises(ValueError, match="power-of-two fft"):
+        framed_dft_magnitude(x, 1000, 50, 240)
+    with pytest.raises(TypeError, match="float32"):
+        framed_dft_magnitude(x.double(), 512, 50, 240)
+    mag = framed_dft_magnitude(x, 512, 50, 240)
+    with pytest.raises(ValueError, match="power-of-two fft"):
+        framed_dft_backward(x, mag, mag, 1000, 50, 240)
+    with pytest.raises(TypeError, match="float32"):
+        framed_dft_backward(x.double(), mag, mag, 512, 50, 240)
 
 
 def test_framed_dft_autograd_runs_k3_and_k4(cuda):

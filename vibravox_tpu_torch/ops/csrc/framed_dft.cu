@@ -1,292 +1,414 @@
 // K3 and K4: magnitude of the framed, windowed DFT, forward and backward,
-// hand-written for Hopper (sm_90a).
+// hand-written for Hopper (sm_90a) as shared-memory FFTs.
 //
 // K3 replaces the Pallas TPU kernel vibravox_tpu/ops/pallas_stft.py::_fwd_kernel
 // (launched by _pallas_forward), K4 its _bwd_kernel (launched by
-// _pallas_backward).  Both take the signal already reflect-padded by fft/2 on
-// each side, xp (B, Tp), as torch.stft(center=True) frames it: frame f starts
-// at f * hop, and its Hann window (win taps, centred in fft) starts at pad_l =
-// (fft - win) / 2.  With the window folded into the DFT rows,
+// _pallas_backward).  Both take the unpadded signal x (B, T) and frame it as
+// torch.stft(center=True) does: frame f covers the samples f hop + n, n < fft,
+// of x reflect-padded by pad = fft / 2 on each side, and its periodic Hann
+// window (win taps, zero-padded to fft) starts at pad_l = (fft - win) / 2:
 //
-//     wc[n, k] = hann[n] cos(-2 pi (pad_l + n) k / fft),  ws[n, k] = the same with sin,
-//     re[f, k] = sum_{n < win} xp[f hop + pad_l + n] wc[n, k],   im likewise with ws,
-//     K3:  mag[f, k] = sqrt(max(re^2 + im^2, eps)),
-//     K4:  dxp[p] = sum_{f, n: f hop + pad_l + n = p} sum_k gom[f, k] (re wc[n, k] + im ws[n, k]),
+//     X_f[k] = sum_n w[n] xp[f hop + n] exp(-2 pi i n k / fft),   k <= fft / 2,
+//     K3:  mag[f, k] = sqrt(max(|X_f[k]|^2, eps)),
+//     K4:  dx = the transpose of the reflect pad applied to
+//          dxp[f hop + n] += w[n] Re sum_{k <= fft/2} G_f[k] exp(2 pi i n k / fft),
+//          G_f[k] = gom[f, k] X_f[k],  gom = g / mag (0 where mag <= sqrt(eps)).
 //
-// where gom = g / mag (0 where the power was clamped) is formed by the caller,
-// which also folds dxp back through the reflect pad.  Only the win rows where
-// the window is not zero enter the sums (the TPU kernel multiplied by the
-// zero rows too).
+// Bound on this card.  An FFT needs about 2.5 fft log2(fft) FLOP per real
+// frame, under 1 GFLOP per signal at the loss's three resolutions, so both
+// kernels are bound by bytes: K3 reads x once and writes the magnitudes
+// once (31 / 27 / 27 MB per call at B = 32, T = 39904 and fft 512 / 1024 /
+// 2048, about 9 / 8 / 8 us at 3.35 TB/s); K4 reads x, g and mag and writes
+// dx, about twice that.
 //
-// Design.  Frames are never written to device memory, which is the point of
-// the TPU kernels.  K3: one block per (batch row, 64 frames, 64 bins) stages
-// the signal span of its frames in shared memory once and streams the rows
-// of wc, ws through shared memory 16 at a time; each thread accumulates a
-// 4-frame x 4-bin tile of re and im with f32 FMAs.  K4: one block per (batch
-// row, 58 hop-rows of output); it owns its output samples, so blocks never
-// write the same sample and nothing is reduced across blocks.  For each
-// 64-bin tile it recomputes re and im of the (at most 64) frames that touch
-// its samples, scales them by gom in shared memory, and forms the frame
-// gradients 32 window rows at a time, each added straight into the block's
-// output samples in shared memory: with 32 <= hop, the 32 rows of one chunk
-// send every frame to distinct samples, so no two threads add to one sample.
-// The TPU's sequential bin axis with a resident output block becomes this
-// loop over bin tiles inside the block.
-//
-// Bound on this card: K3 does 4 B F win K FLOP on 4 B (Tp + F K) bytes, K4
-// about twice the FLOP; at the loss's shapes that is hundreds of FLOP per
-// byte, bound by arithmetic at the f32 rate of 67 TFLOP/s.  A DFT done as a
-// direct sum costs O(win) per bin where an FFT costs O(log fft), so an FFT
-// library call does far less work for the same function.
+// Design.  Nothing but x, g, mag and the outputs touches device memory: no
+// frames, no spectra, no padded copy, no window-folded DFT rows.
+// - A block of max(256, fft / 8) threads transforms P = threads * 8 / fft
+//   frame pairs at once, each thread holding 8 points of a pair per stage.
+//   Frames 2p and 2p + 1 are the real and imaginary part of one complex
+//   fft-point FFT Z, separated after it as X_a[k] = (Z[k] + conj Z[-k]) / 2
+//   and X_b[k] = (Z[k] - conj Z[-k]) / 2i.
+// - The frames are copied from x into shared memory with cp.async, the
+//   reflect pad done by the mirrored source index; each tap of a frame is
+//   its own copy, so any hop fits (overlapping frames read x again, mostly
+//   from L1 and L2).  The window multiplies the points as the
+//   first FFT stage reads them; the taps outside it are zero.
+// - The FFT is a Stockham autosort FFT in shared memory, float32: one radix-2
+//   or radix-4 stage when log2(fft) is not a multiple of 3, then radix-8
+//   stages, the butterflies in registers, twiddles from an fft-entry float32
+//   table computed in float64 on the host.
+// - K3: one block per (batch row, chunk of 2P consecutive frames); the
+//   magnitudes of a chunk are one contiguous run of the output, written
+//   coalesced.
+// - K4: the same grid.  A block recomputes its chunk's spectra as K3 does,
+//   forms gom and G in registers, and gets both frames' gradients of a pair
+//   from one inverse FFT of V = Y_a + i Y_b, Y[k] = G[k] (k = 0, fft / 2) or
+//   G[k] / 2, Hermitian-extended, done as conj(FFT(conj V)).  It then sums
+//   its frames' windowed gradients over its span of padded positions,
+//   (2P - 1) hop + win of them, into its own row of a scratch buffer; each
+//   thread owns its positions and adds the frames in order.  A second,
+//   elementwise kernel gives dx[t] the sum, in chunk order, of the rows
+//   covering t's padded position and its reflect mirrors: the transpose of
+//   the reflect pad.  No two threads write one value and no float atomics
+//   are used, so dx is bit-equal from run to run; the scratch rows are
+//   1.5-3x the size of x at the loss's resolutions.  Owning frames, not
+//   output samples, recomputes no frame twice and gives K4 K3's grid.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTF = 64;   // frames per block (K3) and most frames a K4 block touches
-constexpr int kTK = 64;   // bins per tile
-constexpr int kNC = 16;   // window rows per staged chunk (re/im)
-constexpr int kND = 32;   // window rows per frame-gradient chunk (K4); needs hop >= kND
-constexpr int kTR = 58;   // hop-rows of output per K4 block: frames touching them <= kTF
+constexpr int kPoints = 8;  // FFT points a thread holds per stage
 
-// re, im (4 frames x 4 bins) of local frames fl0..fl0+3 and tile bins
-// kl0..kl0+3, from the signal span xs (frame fl starts at xs[fl * hop]).
-// Every thread of the block calls it (it synchronises).
-__device__ __forceinline__ void re_im_tile(const float* xs, int hop, int win,
-                                           const float* __restrict__ wc,
-                                           const float* __restrict__ wsn, int n_bins, int k0,
-                                           float* stc, float* sts, int fl0, int kl0,
-                                           float (&re)[4][4], float (&im)[4][4]) {
+__host__ __device__ constexpr int threads_for(int n) { return n / kPoints > 256 ? n / kPoints : 256; }
+__host__ __device__ constexpr int pairs_for(int n) { return threads_for(n) * kPoints / n; }
+__host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n / 2); }
+
+__device__ __forceinline__ float2 operator+(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 operator-(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 times_minus_i(float2 a) { return make_float2(a.y, -a.x); }
+
+// in-register forward DFT of R points (sign -1)
+template <int R>
+__device__ __forceinline__ void dft(float2 (&a)[R]);
+
+template <>
+__device__ __forceinline__ void dft<2>(float2 (&a)[2]) {
+  const float2 t = a[0];
+  a[0] = t + a[1];
+  a[1] = t - a[1];
+}
+
+template <>
+__device__ __forceinline__ void dft<4>(float2 (&a)[4]) {
+  const float2 t0 = a[0] + a[2], t1 = a[0] - a[2], t2 = a[1] + a[3];
+  const float2 t3 = times_minus_i(a[1] - a[3]);
+  a[0] = t0 + t2;
+  a[2] = t0 - t2;
+  a[1] = t1 + t3;
+  a[3] = t1 - t3;
+}
+
+template <>
+__device__ __forceinline__ void dft<8>(float2 (&a)[8]) {
+  float2 e[4] = {a[0], a[2], a[4], a[6]};
+  float2 o[4] = {a[1], a[3], a[5], a[7]};
+  dft<4>(e);
+  dft<4>(o);
+  constexpr float c = 0.70710678118654752f;  // o[k] *= exp(-2 pi i k / 8)
+  o[1] = make_float2(c * (o[1].x + o[1].y), c * (o[1].y - o[1].x));
+  o[2] = times_minus_i(o[2]);
+  o[3] = make_float2(c * (o[3].y - o[3].x), -c * (o[3].x + o[3].y));
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) re[q][c] = im[q][c] = 0.f;
-  for (int n0 = 0; n0 < win; n0 += kNC) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = threadIdx.x; e < kNC * kTK; e += kThreads) {
-      const int r = e / kTK;
-      const int n = n0 + r;
-      const int k = k0 + (e - r * kTK);
-      const bool ok = n < win && k < n_bins;
-      stc[e] = ok ? wc[static_cast<size_t>(n) * n_bins + k] : 0.f;
-      sts[e] = ok ? wsn[static_cast<size_t>(n) * n_bins + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kNC; ++r) {
-      float xv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) xv[q] = xs[(fl0 + q) * hop + n0 + r];
-      const float4 c4 = *reinterpret_cast<const float4*>(stc + r * kTK + kl0);
-      const float4 s4 = *reinterpret_cast<const float4*>(sts + r * kTK + kl0);
-      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          re[q][c] = fmaf(xv[q], cv[c], re[q][c]);
-          im[q][c] = fmaf(xv[q], sv[c], im[q][c]);
-        }
-    }
+  for (int k = 0; k < 4; ++k) {
+    a[k] = e[k] + o[k];
+    a[k + 4] = e[k] - o[k];
   }
 }
 
-__device__ __forceinline__ void load_span(float* xs, const float* xb, int start, int len,
-                                          int t_pad) {
-  for (int j = threadIdx.x; j < len; j += kThreads) {
-    const int p = start + j;
-    xs[j] = (p >= 0 && p < t_pad) ? xb[p] : 0.f;
-  }
-}
-
-__host__ __device__ constexpr int span_floats(int hop, int win) {
-  return (kTF - 1) * hop + win + kNC;  // the zero tail covers a chunk past win
-}
-
-__global__ void __launch_bounds__(kThreads)
-framed_dft_magnitude_kernel(const float* __restrict__ xp, const float* __restrict__ wc,
-                            const float* __restrict__ wsn, float* __restrict__ mag, int t_pad,
-                            int n_frames, int hop, int pad_l, int win, int n_bins, float eps) {
-  extern __shared__ float4 smem4[];
-  float* stc = reinterpret_cast<float*>(smem4);  // [kNC][kTK]
-  float* sts = stc + kNC * kTK;                  // [kNC][kTK]
-  float* xs = sts + kNC * kTK;                   // signal span of the block's frames
-  const int k0 = blockIdx.x * kTK;
-  const int f0 = blockIdx.y * kTF;
-  const int b = blockIdx.z;
-  load_span(xs, xp + static_cast<size_t>(b) * t_pad, f0 * hop + pad_l, span_floats(hop, win),
-            t_pad);
-  const int fl0 = (threadIdx.x / 16) * 4;
-  const int kl0 = (threadIdx.x % 16) * 4;
-  float re[4][4], im[4][4];
-  re_im_tile(xs, hop, win, wc, wsn, n_bins, k0, stc, sts, fl0, kl0, re, im);
-  float* out = mag + static_cast<size_t>(b) * n_frames * n_bins;
+// One Stockham stage of radix R over the N points z of one transform, after
+// stages whose radices multiply to NS: butterfly j reads z[j + r N / R],
+// twiddles the r-th point by exp(-2 pi i r k / (NS R)) with k = j mod NS,
+// and writes its R outputs to z[(j - k) R + k + s NS].  u is the thread's
+// index among the N / 8 threads of the transform; every thread of the block
+// calls it (it synchronises).  `window`, if given, multiplies the points as
+// they are read.
+template <int N, int R, int NS>
+__device__ __forceinline__ void fft_stage(float2* z, int u, const float2* __restrict__ tw,
+                                          const float* __restrict__ window) {
+  constexpr int kThreadsPer = N / kPoints;
+  constexpr int kM = kPoints / R;  // butterflies per thread
+  float2 a[kM][R];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int f = f0 + fl0 + q;
-    if (f >= n_frames) continue;
+  for (int m = 0; m < kM; ++m) {
+    const int j = u + m * kThreadsPer;
+    const int k = j & (NS - 1);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = k0 + kl0 + c;
-      if (k < n_bins)
-        out[static_cast<size_t>(f) * n_bins + k] =
-            sqrtf(fmaxf(re[q][c] * re[q][c] + im[q][c] * im[q][c], eps));
+    for (int r = 0; r < R; ++r) {
+      const int idx = j + r * (N / R);
+      float2 v = z[idx];
+      if (window != nullptr) {
+        const float w = __ldg(window + idx);
+        v = make_float2(v.x * w, v.y * w);
+      }
+      if (NS > 1 && r > 0) v = cmul(v, __ldg(tw + r * k * (N / (NS * R))));
+      a[m][r] = v;
     }
+    dft<R>(a[m]);
+  }
+  __syncthreads();  // every point of the stage is read before any is written
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const int j = u + m * kThreadsPer;
+    const int k = j & (NS - 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) z[(j - k) * R + k + r * NS] = a[m][r];
+  }
+  __syncthreads();
+}
+
+template <int N, int NS>
+__device__ __forceinline__ void radix8_stages(float2* z, int u, const float2* __restrict__ tw) {
+  if constexpr (NS < N) {
+    fft_stage<N, 8, NS>(z, u, tw, nullptr);
+    radix8_stages<N, NS * 8>(z, u, tw);
   }
 }
 
-__host__ __device__ constexpr int bwd_smem_floats(int hop, int win) {
-  return 2 * kTK * kND             // staged weight rows (either layout)
-         + 2 * kTK * kTF           // gom * re, gom * im: [bin][frame]
-         + kTR * hop               // the block's output samples
-         + span_floats(hop, win);  // signal span of the touching frames
+// forward FFT of the N points z, in place, output in natural order
+template <int N>
+__device__ __forceinline__ void fft(float2* z, int u, const float2* __restrict__ tw,
+                                    const float* __restrict__ window) {
+  constexpr int kFirst = ilog2(N) % 3 == 1 ? 2 : ilog2(N) % 3 == 2 ? 4 : 8;
+  fft_stage<N, kFirst, 1>(z, u, tw, window);
+  radix8_stages<N, kFirst>(z, u, tw);
+}
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Frames fc + 2p (real part) and fc + 2p + 1 (imaginary part) of the
+// reflect-padded row xb into the P transforms z[p N .. p N + N): the window's
+// taps by cp.async through the mirrored index, zero elsewhere and for frames
+// past the last.  Every thread of the block calls it (it synchronises).
+template <int N>
+__device__ __forceinline__ void load_frames(float2* z, const float* __restrict__ xb, int t_len,
+                                            int n_frames, int hop, int pad_l, int win, int fc) {
+  constexpr int kPairs = pairs_for(N);
+  float* zf = reinterpret_cast<float*>(z);
+  for (int e = threadIdx.x; e < 2 * kPairs * N; e += threads_for(N)) {
+    const int n = e & (N - 1);
+    const int fl = e / N;
+    float* dst = zf + 2 * ((fl >> 1) * N + n) + (fl & 1);
+    const int f = fc + fl;
+    if (f < n_frames && n >= pad_l && n < pad_l + win)
+      cp_async_f32(dst, xb + reflect(f * hop + n - N / 2, t_len));
+    else
+      *dst = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+template <int N>
+__global__ void __launch_bounds__(threads_for(N))
+framed_dft_magnitude_kernel(const float* __restrict__ x, const float2* __restrict__ tw,
+                            const float* __restrict__ window, float* __restrict__ mag, int t_len,
+                            int n_frames, int hop, int pad_l, int win, float eps) {
+  constexpr int kPairs = pairs_for(N), kBins = N / 2 + 1, kThreadsPer = N / kPoints;
+  __shared__ float2 z[kPairs * N];
+  const int b = blockIdx.y;
+  const int fc = blockIdx.x * 2 * kPairs;
+  load_frames<N>(z, x + static_cast<size_t>(b) * t_len, t_len, n_frames, hop, pad_l, win, fc);
+  fft<N>(z + (threadIdx.x / kThreadsPer) * N, threadIdx.x % kThreadsPer, tw, window);
+  // the chunk's magnitudes are one contiguous run of the output
+  const int nf = min(2 * kPairs, n_frames - fc);
+  float* out = mag + (static_cast<size_t>(b) * n_frames + fc) * kBins;
+  for (int e = threadIdx.x; e < nf * kBins; e += threads_for(N)) {
+    const int fl = e / kBins;
+    const int k = e - fl * kBins;
+    const float2* zp = z + (fl >> 1) * N;
+    const float2 a = zp[k], c = zp[(N - k) & (N - 1)];
+    // twice X_a = Z[k] + conj Z[-k] (even frame), twice X_b = (Z[k] - conj Z[-k]) / i
+    const float re = (fl & 1) ? a.y + c.y : a.x + c.x;
+    const float im = (fl & 1) ? c.x - a.x : a.y - c.y;
+    out[e] = sqrtf(fmaxf(0.25f * (re * re + im * im), eps));
+  }
 }
 
 __device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b : -((-a + b - 1) / b); }
 
-__global__ void __launch_bounds__(kThreads)
-framed_dft_backward_kernel(const float* __restrict__ xp, const float* __restrict__ gom,
-                           const float* __restrict__ wc, const float* __restrict__ wsn,
-                           float* __restrict__ dxp, int t_pad, int n_frames, int hop, int pad_l,
-                           int win, int n_bins) {
-  extern __shared__ float4 smem4[];
-  float* stage = reinterpret_cast<float*>(smem4);  // 2 x kTK x kND
-  float* gr = stage + 2 * kTK * kND;                // [kTK][kTF]
-  float* gi = gr + kTK * kTF;                       // [kTK][kTF]
-  float* acc_s = gi + kTK * kTF;                    // [kTR * hop] output samples
-  float* xs = acc_s + kTR * hop;                    // signal span
-
-  const int L = kTR * hop;
-  const int p0 = blockIdx.x * L;
-  const int b = blockIdx.y;
-  // frames whose window [f hop + pad_l, f hop + pad_l + win) meets [p0, p0 + L)
-  const int f_lo = max(0, -floor_div(-(p0 - pad_l - win + 1), hop));
-  const int f_hi = min(n_frames - 1, floor_div(p0 + L - 1 - pad_l, hop));
-  const int nf = f_hi - f_lo + 1;  // <= kTF, checked by the host
-
-  load_span(xs, xp + static_cast<size_t>(b) * t_pad, f_lo * hop + pad_l, span_floats(hop, win),
-            t_pad);
-  for (int j = threadIdx.x; j < L; j += kThreads) acc_s[j] = 0.f;
-  const float* gom_b = gom + static_cast<size_t>(b) * n_frames * n_bins;
-
-  const int fl0 = (threadIdx.x / 16) * 4;  // this thread's 4 frames (re/im and gradients)
-  const int kl0 = (threadIdx.x % 16) * 4;  // its 4 bins (re/im)
-  const int nl0 = (threadIdx.x % 16) * 2;  // its 2 window rows (gradients)
-  for (int k0 = 0; k0 < n_bins; k0 += kTK) {
-    if (nf > 0) {
-      float re[4][4], im[4][4];
-      re_im_tile(xs, hop, win, wc, wsn, n_bins, k0, stage, stage + kNC * kTK, fl0, kl0, re, im);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int fl = fl0 + q;
-          const int k = k0 + kl0 + c;
-          const float s = (fl < nf && k < n_bins)
-                              ? gom_b[static_cast<size_t>(f_lo + fl) * n_bins + k] : 0.f;
-          gr[(kl0 + c) * kTF + fl] = s * re[q][c];
-          gi[(kl0 + c) * kTF + fl] = s * im[q][c];
-        }
-    }
-    // frame gradients dframes[f, n] = sum_k gr[k, f] wc[n, k] + gi[k, f] ws[n, k],
-    // added into the samples f hop + pad_l + n
-    for (int n0 = 0; n0 < win; n0 += kND) {
-      __syncthreads();  // gr, gi complete; previous chunk consumed
-      float* wct = stage;             // [kTK][kND]
-      float* wst = stage + kTK * kND;  // [kTK][kND]
-      for (int e = threadIdx.x; e < kTK * kND; e += kThreads) {
-        const int r = e / kTK;  // window row within the chunk
-        const int c = e - r * kTK;
-        const int n = n0 + r;
-        const int k = k0 + c;
-        const bool ok = n < win && k < n_bins;
-        wct[c * kND + r] = ok ? wc[static_cast<size_t>(n) * n_bins + k] : 0.f;
-        wst[c * kND + r] = ok ? wsn[static_cast<size_t>(n) * n_bins + k] : 0.f;
-      }
-      __syncthreads();
-      float d[4][2];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) d[q][0] = d[q][1] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < kTK; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(gr + c * kTF + fl0);
-        const float4 a2 = *reinterpret_cast<const float4*>(gi + c * kTF + fl0);
-        const float2 w = *reinterpret_cast<const float2*>(wct + c * kND + nl0);
-        const float2 w2 = *reinterpret_cast<const float2*>(wst + c * kND + nl0);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {a2.x, a2.y, a2.z, a2.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          d[q][0] = fmaf(av[q], w.x, fmaf(bv[q], w2.x, d[q][0]));
-          d[q][1] = fmaf(av[q], w.y, fmaf(bv[q], w2.y, d[q][1]));
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int fl = fl0 + q;
-          const int n = n0 + nl0 + r;
-          const int p = (f_lo + fl) * hop + pad_l + n - p0;
-          if (fl < nf && n < win && p >= 0 && p < L) acc_s[p] += d[q][r];
-        }
-    }
-    __syncthreads();  // the last chunk's adds are done before gr, gi are rewritten
+// sum over the frames f in [fc, f_end) whose window covers the padded
+// position q of w[n] dframe_f[n], n = q - f hop, in frame order; the
+// gradient of frame fc + 2p + l sits in lane l of z[p N + n] (the imaginary
+// lane negated: the inverse FFT is conj(FFT(conj V)))
+template <int N>
+__device__ __forceinline__ float gather(const float2* z, const float* __restrict__ window, int q,
+                                        int fc, int f_end, int hop, int pad_l, int win) {
+  const int f0 = max(fc, -floor_div(-(q - pad_l - win + 1), hop));
+  const int f1 = min(f_end - 1, floor_div(q - pad_l, hop));
+  float s = 0.f;
+  for (int f = f0; f <= f1; ++f) {
+    const int n = q - f * hop;
+    const int fl = f - fc;
+    const float2 v = z[(fl >> 1) * N + n];
+    s = fmaf(__ldg(window + n), (fl & 1) ? -v.y : v.x, s);
   }
-  float* out = dxp + static_cast<size_t>(b) * t_pad;
-  for (int j = threadIdx.x; j < L; j += kThreads)
-    if (p0 + j < t_pad) out[p0 + j] = acc_s[j];
+  return s;
 }
 
-cudaError_t set_smem(const void* kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// h gom / 2 of frame f at bin k: gom = g / mag, 0 where mag <= thr or past the last frame
+__device__ __forceinline__ float half_gom(const float* __restrict__ g, const float* __restrict__ mag,
+                                          size_t row, int f, int n_frames, int n_bins, int k,
+                                          float h, float thr) {
+  if (f >= n_frames) return 0.f;
+  const size_t i = (row + f) * n_bins + k;
+  const float m = __ldg(mag + i);
+  return m > thr ? h * 0.5f * (__ldg(g + i) / m) : 0.f;
+}
+
+template <int N>
+__global__ void __launch_bounds__(threads_for(N))
+framed_dft_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                           const float* __restrict__ mag, const float2* __restrict__ tw,
+                           const float* __restrict__ window, float* __restrict__ partial,
+                           int t_len, int n_frames, int hop, int pad_l, int win, int span,
+                           float thr) {
+  constexpr int kPairs = pairs_for(N), kBins = N / 2 + 1, kThreadsPer = N / kPoints;
+  __shared__ float2 z[kPairs * N];
+  const int b = blockIdx.y;
+  const int fc = blockIdx.x * 2 * kPairs;
+  const size_t row = static_cast<size_t>(b) * n_frames;
+  load_frames<N>(z, x + static_cast<size_t>(b) * t_len, t_len, n_frames, hop, pad_l, win, fc);
+  float2* zt = z + (threadIdx.x / kThreadsPer) * N;
+  const int u = threadIdx.x % kThreadsPer;
+  fft<N>(zt, u, tw, window);
+  // G = gom X of both frames of a pair, packed as the conjugate of the
+  // Hermitian-extended V = Y_a + i Y_b; the thread of bin k owns z[k] and z[-k]
+  for (int e = threadIdx.x; e < kPairs * kBins; e += threads_for(N)) {
+    const int p = e / kBins;
+    const int k = e - p * kBins;
+    const int kc = (N - k) & (N - 1);
+    float2* zp = z + p * N;
+    const float2 a = zp[k], c = zp[kc];
+    const float h = (k == 0 || k == N / 2) ? 1.f : 0.5f;
+    const float ga = half_gom(g, mag, row, fc + 2 * p, n_frames, kBins, k, h, thr);
+    const float gb = half_gom(g, mag, row, fc + 2 * p + 1, n_frames, kBins, k, h, thr);
+    // Y_a = h gom_a X_a, X_a = (Z[k] + conj Z[-k]) / 2; Y_b likewise, X_b = (Z[k] - conj Z[-k]) / 2i
+    const float2 ya = make_float2(ga * (a.x + c.x), ga * (a.y - c.y));
+    const float2 yb = make_float2(gb * (a.y + c.y), gb * (c.x - a.x));
+    zp[k] = make_float2(ya.x - yb.y, -(ya.y + yb.x));             // conj(Y_a + i Y_b)
+    if (kc != k) zp[kc] = make_float2(ya.x + yb.y, ya.y - yb.x);  // conj(conj Y_a + i conj Y_b)
+  }
+  __syncthreads();
+  fft<N>(zt, u, tw, nullptr);
+  // the chunk's windowed frame gradients, summed over its span of padded
+  // positions fc hop + pad_l + j, j < span
+  const int f_end = min(fc + 2 * kPairs, n_frames);
+  const int p0 = fc * hop + pad_l;
+  float* out = partial + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * span;
+  for (int j = threadIdx.x; j < span; j += threads_for(N))
+    out[j] = gather<N>(z, window, p0 + j, fc, f_end, hop, pad_l, win);
+}
+
+// sum, in chunk order, of the partials of the chunks whose span covers the
+// padded position q (chunk c spans c chunk_hop + pad_l + [0, span))
+__device__ __forceinline__ float chunk_sum(const float* __restrict__ pb, int q, int n_chunks,
+                                           int chunk_hop, int span, int pad_l) {
+  const int r = q - pad_l;
+  const int c0 = max(0, -floor_div(-(r - span + 1), chunk_hop));
+  const int c1 = min(n_chunks - 1, floor_div(r, chunk_hop));
+  float s = 0.f;
+  for (int c = c0; c <= c1; ++c) s += __ldg(pb + static_cast<size_t>(c) * span + (r - c * chunk_hop));
+  return s;
+}
+
+// K4's second pass: dx[t] = the partial sums at t's padded position t + pad
+// and, the transpose of the reflect pad, at its mirror positions pad - t (t
+// in [1, pad]) and pad + 2 (T - 1) - t (t in [T - 1 - pad, T - 2])
+__global__ void __launch_bounds__(256)
+framed_dft_backward_sum_kernel(const float* __restrict__ partial, float* __restrict__ dx, int t_len,
+                               int n_chunks, int chunk_hop, int span, int pad, int pad_l) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= t_len) return;
+  const float* pb = partial + static_cast<size_t>(blockIdx.y) * n_chunks * span;
+  float s = chunk_sum(pb, t + pad, n_chunks, chunk_hop, span, pad_l);
+  if (t >= 1 && t <= pad) s += chunk_sum(pb, pad - t, n_chunks, chunk_hop, span, pad_l);
+  if (t >= t_len - 1 - pad && t <= t_len - 2)
+    s += chunk_sum(pb, pad + 2 * (t_len - 1) - t, n_chunks, chunk_hop, span, pad_l);
+  dx[static_cast<size_t>(blockIdx.y) * t_len + t] = s;
+}
+
+// calls f(std::integral_constant<int, fft>) for the fft sizes the kernels are built for
+template <typename F>
+cudaError_t dispatch_fft(int fft, F&& f) {
+  switch (fft) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 512: return f(std::integral_constant<int, 512>{});
+    case 1024: return f(std::integral_constant<int, 1024>{});
+    case 2048: return f(std::integral_constant<int, 2048>{});
+    case 4096: return f(std::integral_constant<int, 4096>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool valid_geometry(int batch, int t_len, int n_frames, int fft, int hop, int pad_l, int win) {
+  return batch >= 1 && batch <= 65535 && hop >= 1 && win >= 1 && win <= fft &&
+         pad_l == (fft - win) / 2 && t_len > fft / 2 && n_frames == 1 + t_len / hop;
 }
 
 }  // namespace
 
 extern "C" {
 
-// xp: (batch, t_pad) float32, the signal reflect-padded by fft/2 per side;
-// wc, ws: (win, n_bins) float32 window-folded DFT rows; mag: (batch, n_frames,
-// n_bins) float32.  Launches K3 on `stream`; returns a cudaError_t.
-int vx_framed_dft_magnitude(const void* xp, const void* wc, const void* ws, void* mag, int batch,
-                            int t_pad, int n_frames, int hop, int pad_l, int win, int n_bins,
-                            float eps, int device, void* stream) {
-  if (batch < 1 || batch > 65535 || hop < 1 || win < 1 || n_bins < 1) return cudaErrorInvalidValue;
+// x: (batch, t_len) float32; twiddles: (fft, 2) float32 exp(-2 pi i m / fft);
+// window: (fft,) float32, the Hann window of win taps at pad_l, zero
+// elsewhere; mag: (batch, n_frames, fft / 2 + 1) float32.  fft is a power of
+// two in [64, 4096].  Launches K3 on `stream`; returns a cudaError_t.
+int vx_framed_dft_magnitude(const void* x, const void* twiddles, const void* window, void* mag,
+                            int batch, int t_len, int n_frames, int fft, int hop, int pad_l,
+                            int win, float eps, int device, void* stream) {
+  if (!valid_geometry(batch, t_len, n_frames, fft, hop, pad_l, win)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = (2 * kNC * kTK + span_floats(hop, win)) * sizeof(float);
-  if ((err = set_smem(reinterpret_cast<const void*>(framed_dft_magnitude_kernel), smem)) != cudaSuccess)
-    return err;
-  const dim3 grid((n_bins + kTK - 1) / kTK, (n_frames + kTF - 1) / kTF, batch);
-  framed_dft_magnitude_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xp), static_cast<const float*>(wc), static_cast<const float*>(ws),
-      static_cast<float*>(mag), t_pad, n_frames, hop, pad_l, win, n_bins, eps);
-  return cudaGetLastError();
+  return dispatch_fft(fft, [&](auto n) {
+    constexpr int N = decltype(n)::value;
+    const dim3 grid((n_frames + 2 * pairs_for(N) - 1) / (2 * pairs_for(N)), batch);
+    framed_dft_magnitude_kernel<N><<<grid, threads_for(N), 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float2*>(twiddles),
+        static_cast<const float*>(window), static_cast<float*>(mag), t_len, n_frames, hop, pad_l,
+        win, eps);
+    return cudaGetLastError();
+  });
 }
 
-// xp as above; gom: (batch, n_frames, n_bins) float32, the cotangent of the
-// magnitude divided by it (0 where clamped); dxp: (batch, t_pad) float32, the
-// gradient with respect to xp.  Launches K4 on `stream`; returns a cudaError_t.
-int vx_framed_dft_backward(const void* xp, const void* gom, const void* wc, const void* ws,
-                           void* dxp, int batch, int t_pad, int n_frames, int hop, int pad_l,
-                           int win, int n_bins, int device, void* stream) {
-  if (batch < 1 || batch > 65535 || hop < kND || win < 1 || n_bins < 1) return cudaErrorInvalidValue;
-  if ((kTR * hop + win - 2) / hop + 1 > kTF) return cudaErrorInvalidValue;  // frames per block
+// x, twiddles, window as above; g, mag: (batch, n_frames, fft / 2 + 1)
+// float32, the cotangent of the magnitude and the magnitude; partial:
+// scratch of partial_floats = batch * n_chunks * span float32, n_chunks =
+// ceil(n_frames / 2P), span = (2P - 1) hop + win, P = max(256, fft / 8) * 8
+// / fft frame pairs per chunk; dx: (batch, t_len) float32.  thr is
+// sqrt(eps), the magnitude at or below which the gradient is 0.  Launches
+// K4's two passes on `stream`; returns a cudaError_t.
+int vx_framed_dft_backward(const void* x, const void* g, const void* mag, const void* twiddles,
+                           const void* window, void* partial, void* dx, int batch, int t_len,
+                           int n_frames, int fft, int hop, int pad_l, int win, long long partial_floats,
+                           float thr, int device, void* stream) {
+  if (!valid_geometry(batch, t_len, n_frames, fft, hop, pad_l, win)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = bwd_smem_floats(hop, win) * sizeof(float);
-  if ((err = set_smem(reinterpret_cast<const void*>(framed_dft_backward_kernel), smem)) != cudaSuccess)
-    return err;
-  const dim3 grid((t_pad + kTR * hop - 1) / (kTR * hop), batch);
-  framed_dft_backward_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xp), static_cast<const float*>(gom), static_cast<const float*>(wc),
-      static_cast<const float*>(ws), static_cast<float*>(dxp), t_pad, n_frames, hop, pad_l, win,
-      n_bins);
-  return cudaGetLastError();
+  return dispatch_fft(fft, [&](auto n) {
+    constexpr int N = decltype(n)::value;
+    constexpr int kChunk = 2 * pairs_for(N);
+    const int n_chunks = (n_frames + kChunk - 1) / kChunk;
+    const int span = (kChunk - 1) * hop + win;
+    if (partial_floats != static_cast<long long>(batch) * n_chunks * span) return cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    framed_dft_backward_kernel<N><<<dim3(n_chunks, batch), threads_for(N), 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(mag),
+        static_cast<const float2*>(twiddles), static_cast<const float*>(window),
+        static_cast<float*>(partial), t_len, n_frames, hop, pad_l, win, span, thr);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    framed_dft_backward_sum_kernel<<<dim3((t_len + 255) / 256, batch), 256, 0, s>>>(
+        static_cast<const float*>(partial), static_cast<float*>(dx), t_len, n_chunks, kChunk * hop,
+        span, N / 2, pad_l);
+    return cudaGetLastError();
+  });
 }
 
 const char* vx_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -14,10 +14,14 @@ fft // 2 + 1)``.  It dispatches on the tensor's device:
   ``framed_dft_backward_kernel`` (K4, counterpart of ``_bwd_kernel``), or
   raises.  Neither falls back to the plain version.
 
-Glue around the kernels stays in torch, as in the JAX package: the reflect
-pad of the input, gom = g / |X| (0 where the clamp was active), and the
-transpose of the reflect pad after K4.  The window-folded DFT rows are built
-once per resolution on the host (``_dft_matrices``) and cached on the device.
+Both kernels are shared-memory FFTs and take the unpadded signal: the
+reflect pad, gom = g / |X| (0 where the clamp was active) and the transpose
+of the reflect pad happen inside them (K4 is two launches: the frames'
+gradients into a scratch buffer, then their ordered sum into dx).  Their
+only tables are the fft-point twiddles and the fft-long window
+(``_kernel_tables``), built once per resolution on the host in float64 and
+cached on the device.  The CUDA path takes a power-of-two fft from 64 to
+4096 (the JAX function takes any even fft) and any hop.
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from vibravox_tpu_torch.ops import _build
 
@@ -41,30 +44,15 @@ __all__ = [
     "plain_framed_dft_backward",
 ]
 
-_MIN_HOP = 32  # K4 adds one chunk of 32 window rows per frame without collisions
+MIN_FFT, MAX_FFT = 64, 4096  # the fft sizes the kernels are built for (powers of two)
 
-_rows: Dict[Tuple[int, int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+_tables: Dict[Tuple[int, int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def hann_window(win_length: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Periodic Hann window (``torch.hann_window``'s default)."""
     n = torch.arange(win_length, dtype=dtype, device=device)
     return 0.5 - 0.5 * torch.cos(2.0 * torch.pi * n / win_length)
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_matrices(fft_size: int, win_length: int):
-    """Real/imag rDFT rows with the periodic Hann window folded in, float32
-    ``(win, fft // 2 + 1)`` each: the rows pad_l .. pad_l + win of the
-    fft-long window-folded matrices, the only rows where the centred window
-    is not zero (pad_l = (fft - win) // 2)."""
-    n = np.arange(win_length)
-    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
-    t = ((fft_size - win_length) // 2 + n)[:, None]
-    k = np.arange(fft_size // 2 + 1)[None, :]
-    angle = -2.0 * np.pi * t * k / fft_size
-    return ((np.cos(angle) * win[:, None]).astype(np.float32),
-            (np.sin(angle) * win[:, None]).astype(np.float32))
 
 
 def plain_framed_dft_magnitude(
@@ -92,32 +80,62 @@ def plain_framed_dft_backward(
     return dx
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(fft_size: int, win_length: int):
+    """The kernels' tables, float32, computed in float64: the twiddles
+    exp(-2 pi i m / fft) for m < fft as (fft, 2) (re, im) rows, and the
+    periodic Hann window of win_length taps centred in fft samples (zero
+    outside pad_l .. pad_l + win, pad_l = (fft - win) // 2)."""
+    m = np.arange(fft_size)
+    angle = -2.0 * np.pi * m / fft_size
+    twiddles = np.stack([np.cos(angle), np.sin(angle)], axis=1).astype(np.float32)
+    window = np.zeros(fft_size)
+    pad_l = (fft_size - win_length) // 2
+    window[pad_l : pad_l + win_length] = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
+    return twiddles, window.astype(np.float32)
+
+
+def _device_tables(fft_size: int, win_length: int, device: torch.device):
+    """``_kernel_tables`` cached on the device."""
+    key = (fft_size, win_length, device)
+    if key not in _tables:
+        _tables[key] = tuple(torch.from_numpy(t).to(device) for t in _kernel_tables(fft_size, win_length))
+    return _tables[key]
+
+
+def _pairs_per_chunk(fft_size: int) -> int:
+    """Frame pairs one block transforms at once: a block has max(256,
+    fft / 8) threads, each holding 8 points of a pair's fft-point FFT."""
+    return max(256, fft_size // 8) * 8 // fft_size
+
+
+def _chunking(fft_size: int, hop: int, win_length: int, n_frames: int) -> Tuple[int, int]:
+    """(chunks per row, span): a K3/K4 block transforms one chunk of 2P
+    consecutive frames, and K4's block adds its frames' gradients over the
+    span of (2P - 1) hop + win padded positions they cover."""
+    chunk = 2 * _pairs_per_chunk(fft_size)
+    return -(-n_frames // chunk), (chunk - 1) * hop + win_length
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _build.load("framed_dft")
     lib.vx_framed_dft_magnitude.restype = ctypes.c_int
     lib.vx_framed_dft_magnitude.argtypes = (
-        [ctypes.c_void_p] * 4  # xp, wc, ws, mag
-        + [ctypes.c_int] * 7  # batch, t_pad, n_frames, hop, pad_l, win, n_bins
+        [ctypes.c_void_p] * 4  # x, twiddles, window, mag
+        + [ctypes.c_int] * 7  # batch, t, n_frames, fft, hop, pad_l, win
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # eps, device, stream
     )
     lib.vx_framed_dft_backward.restype = ctypes.c_int
     lib.vx_framed_dft_backward.argtypes = (
-        [ctypes.c_void_p] * 5  # xp, gom, wc, ws, dxp
-        + [ctypes.c_int] * 7  # batch, t_pad, n_frames, hop, pad_l, win, n_bins
+        [ctypes.c_void_p] * 7  # x, g, mag, twiddles, window, partial, dx
+        + [ctypes.c_int] * 7  # batch, t, n_frames, fft, hop, pad_l, win
+        + [ctypes.c_longlong, ctypes.c_float]  # partial's size, sqrt(eps)
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
     lib.vx_error_string.restype = ctypes.c_char_p
     lib.vx_error_string.argtypes = [ctypes.c_int]
     return lib
-
-
-def _window_rows(fft_size: int, win_length: int, device: torch.device):
-    """``_dft_matrices`` cached on the device."""
-    key = (fft_size, win_length, device)
-    if key not in _rows:
-        _rows[key] = tuple(torch.from_numpy(m).to(device) for m in _dft_matrices(fft_size, win_length))
-    return _rows[key]
 
 
 def _check_cuda(x: torch.Tensor, fft_size: int, hop: int, win_length: int) -> None:
@@ -127,28 +145,25 @@ def _check_cuda(x: torch.Tensor, fft_size: int, hop: int, win_length: int) -> No
         raise ValueError(f"expected (B, T), got shape {tuple(x.shape)}")
     if not 1 <= x.shape[0] <= 65535:
         raise ValueError(f"batch must be in [1, 65535], got {x.shape[0]}")
+    if not (MIN_FFT <= fft_size <= MAX_FFT and fft_size & (fft_size - 1) == 0):
+        raise ValueError(f"the framed-DFT kernels take a power-of-two fft in [{MIN_FFT}, {MAX_FFT}], got {fft_size}")
+    if not 0 < win_length <= fft_size:
+        raise ValueError(f"need 0 < win <= fft, got fft={fft_size}, win={win_length}")
+    if hop < 1:
+        raise ValueError(f"need hop >= 1, got {hop}")
     if x.shape[1] <= fft_size // 2:
         raise ValueError(f"reflect padding by {fft_size // 2} needs T > {fft_size // 2}, got {x.shape[1]}")
-    if not (0 < win_length <= fft_size and fft_size % 2 == 0):
-        raise ValueError(f"need an even fft and 0 < win <= fft, got fft={fft_size}, win={win_length}")
-    if hop < _MIN_HOP:
-        raise ValueError(f"the framed-DFT backward kernel needs hop >= {_MIN_HOP}, got {hop}")
-
-
-def _geometry(x: torch.Tensor, fft_size: int, hop: int, win_length: int):
-    """(reflect-padded xp, t_pad, n_frames, pad_l, n_bins)."""
-    xp = F.pad(x[:, None, :], (fft_size // 2, fft_size // 2), mode="reflect")[:, 0, :].contiguous()
-    return xp, xp.shape[1], 1 + x.shape[1] // hop, (fft_size - win_length) // 2, fft_size // 2 + 1
 
 
 def _launch_magnitude(x, fft_size, hop, win_length, eps) -> torch.Tensor:
-    xp, t_pad, n_frames, pad_l, n_bins = _geometry(x, fft_size, hop, win_length)
-    wc, ws = _window_rows(fft_size, win_length, x.device)
-    mag = torch.empty(x.shape[0], n_frames, n_bins, device=x.device, dtype=torch.float32)
+    batch, t = x.shape
+    n_frames = 1 + t // hop
+    twiddles, window = _device_tables(fft_size, win_length, x.device)
+    mag = torch.empty(batch, n_frames, fft_size // 2 + 1, device=x.device, dtype=torch.float32)
     lib = _library()
     err = lib.vx_framed_dft_magnitude(
-        xp.data_ptr(), wc.data_ptr(), ws.data_ptr(), mag.data_ptr(), x.shape[0], t_pad,
-        n_frames, hop, pad_l, win_length, n_bins, float(eps), x.device.index or 0,
+        x.data_ptr(), twiddles.data_ptr(), window.data_ptr(), mag.data_ptr(), batch, t, n_frames,
+        fft_size, hop, (fft_size - win_length) // 2, win_length, float(eps), x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
@@ -202,27 +217,26 @@ def framed_dft_backward(
     if x.device.type != "cuda":
         raise ValueError(f"framed_dft_backward runs on cpu or cuda, got {x.device}")
     _check_cuda(x, fft_size, hop, win_length)
-    xp, t_pad, n_frames, pad_l, n_bins = _geometry(x, fft_size, hop, win_length)
-    if tuple(mag.shape) != (x.shape[0], n_frames, n_bins) or tuple(g.shape) != tuple(mag.shape):
-        raise ValueError(f"mag {tuple(mag.shape)} and g {tuple(g.shape)} must be {(x.shape[0], n_frames, n_bins)}")
-    # d|X|/d re = re / |X|, 0 where the power clamp was active
-    gom = torch.where(mag > math.sqrt(eps), g.float() / mag, 0.0).contiguous()
-    wc, ws = _window_rows(fft_size, win_length, x.device)
-    dxp = torch.empty_like(xp)
+    batch, t = x.shape
+    n_frames = 1 + t // hop
+    want = (batch, n_frames, fft_size // 2 + 1)
+    if tuple(mag.shape) != want or tuple(g.shape) != want:
+        raise ValueError(f"mag {tuple(mag.shape)} and g {tuple(g.shape)} must be {want}")
+    x, mag, g = (v.to(torch.float32).contiguous() for v in (x, mag, g))
+    twiddles, window = _device_tables(fft_size, win_length, x.device)
+    n_chunks, span = _chunking(fft_size, hop, win_length, n_frames)
+    partial = torch.empty(batch * n_chunks * span, device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
     lib = _library()
     err = lib.vx_framed_dft_backward(
-        xp.data_ptr(), gom.data_ptr(), wc.data_ptr(), ws.data_ptr(), dxp.data_ptr(),
-        x.shape[0], t_pad, n_frames, hop, pad_l, win_length, n_bins, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), g.data_ptr(), mag.data_ptr(), twiddles.data_ptr(), window.data_ptr(),
+        partial.data_ptr(), dx.data_ptr(), batch, t, n_frames, fft_size, hop,
+        (fft_size - win_length) // 2, win_length, partial.numel(), math.sqrt(eps),
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"framed-DFT backward launch failed: {lib.vx_error_string(err).decode()}")
     framed_dft_backward.launches += 1
-    # transpose of the reflect pad: fold the edge gradients back inside
-    pad, t = fft_size // 2, x.shape[1]
-    dx = dxp[:, pad : pad + t].clone()
-    dx[:, 1 : pad + 1] += dxp[:, :pad].flip(1)
-    dx[:, t - pad - 1 : t - 1] += dxp[:, pad + t :].flip(1)
     return dx
 
 
