@@ -7,8 +7,9 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
 
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: every kernel source (K1; K2; K3 and K4), one nvcc each, all
-   started together, with the nvcc time and the ptxas resource report of
-   each kernel;
+   started together, with the nvcc time, the ptxas resource report and the
+   HMMA (tensor-core) instruction count of each kernel; K2's bf16 unit
+   kernels must have HMMA and its f32 ones none;
 3. k1_parity: the fused residual stack (K1) against its plain PyTorch version
    at the serving shapes in float32 (atol 2e-5 of scale, TF32 off for the
    plain convolutions) and bfloat16 (2e-2 of scale), plus ragged T = 1001 and
@@ -27,7 +28,8 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
 7. k2_parity: the residual stack's backward (K2) against autograd of the
    plain stack at the training shapes (B = 32) and T = 1001, 40, float32
    and bfloat16, dW bit-equal over two runs; K1 against its plain version
-   at the same shapes; K1 and K2 times;
+   at the same shapes; K1 and K2 times, and K2's device time by pass from
+   a CUDA-only trace of one call;
 8. k3_k4_parity: the framed-DFT magnitude (K3) and its backward (K4)
    against ``torch.stft`` and its autograd at B = 32, T = 39904, the three
    loss resolutions, and at a ragged T, B = 1, T just above fft / 2 and
@@ -51,9 +53,11 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -148,16 +152,47 @@ def phase_device() -> str:
     return smi
 
 
+def hmma_counts(lib_path: str) -> dict:
+    """Tensor-core (HMMA) instructions per kernel in a built library's SASS,
+    from ``cuobjdump -sass``; keys are the mangled kernel names."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def phase_build() -> None:
-    """Every kernel source, one nvcc each, all started together."""
+    """Every kernel source, one nvcc each, all started together; the HMMA
+    count of each kernel.  K2's bf16 unit kernels must run on the tensor
+    cores and its f32 ones must not."""
     t0 = time.perf_counter()
     infos = _build.build_all(_build.SOURCES)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
+        hmma = hmma_counts(info["path"])
         emit({"phase": "build", "source": name, "wall_seconds_all_sources": wall,
-              "nvcc_seconds": info["seconds"],
+              "nvcc_seconds": info["seconds"], "hmma_per_kernel": hmma,
               "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                         if any(w in ln for w in ("Compiling entry", "Used", "spill"))]})
+        if name != "fused_residual_bwd":
+            continue
+        units = {k: v for k, v in hmma.items() if "unit_forward_kernel" in k or "unit_backward_kernel" in k}
+        bf16 = {k: v for k, v in units.items() if "__nv_bfloat16" in k}
+        f32 = {k: v for k, v in units.items() if k not in bf16}
+        if not bf16 or not f32:
+            raise AssertionError(f"K2's unit kernels not found in its SASS: {sorted(hmma)}")
+        if not all(bf16.values()):
+            raise AssertionError(f"a bf16 K2 unit kernel has no HMMA: {bf16}")
+        if any(f32.values()):
+            raise AssertionError(f"an f32 K2 unit kernel has HMMA: {f32}")
 
 
 def phase_k1_parity() -> list:
@@ -353,13 +388,41 @@ def k2_bound_ms(b: int, c: int, t: int, dtype: torch.dtype):
     return 72 * c * c * t * b / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+# K2's CUDA launches in the order of one call: the recompute of x1 and x2,
+# then each unit's backward and its dW reduction, units at d = 9, 3, 1
+K2_PASSES = (("unit_forward d=1", "unit_forward_kernel"), ("unit_forward d=3", "unit_forward_kernel"),
+             ("unit_backward d=9", "unit_backward_kernel"), ("reduce_partials d=9", "reduce_partials_kernel"),
+             ("unit_backward d=3", "unit_backward_kernel"), ("reduce_partials d=3", "reduce_partials_kernel"),
+             ("unit_backward d=1", "unit_backward_kernel"), ("reduce_partials d=1", "reduce_partials_kernel"))
+
+
+def k2_passes_us(x, ks, g) -> dict:
+    """K2's device time by pass (µs), from a CUDA-only torch.profiler trace
+    of one call after a warm-up call; the kernels in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    residual_stack_backward(x, ks, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        residual_stack_backward(x, ks, g)
+        torch.cuda.synchronize()
+    kinds = {kernel for _, kernel in K2_PASSES}
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and any(k in e.name for k in kinds)), key=lambda e: e.time_range.start)
+    if len(events) != len(K2_PASSES) or not all(k in e.name for (_, k), e in zip(K2_PASSES, events)):
+        raise AssertionError(f"K2's trace is not its {len(K2_PASSES)} passes: {[e.name for e in events]}")
+    return {label: e.time_range.elapsed_us() for (label, _), e in zip(K2_PASSES, events)}
+
+
 def phase_k2_parity() -> list:
     """K2 against autograd of the plain stack at the training shapes (B = 32)
     and short and ragged T, float32 (the plain side's convolutions in IEEE
     float32) and bfloat16 (against the plain version in float32 on the same
     bf16 values); dW bit-equal across two runs; K1 against its plain version
     at the same shapes and tolerances as in phase_k1_parity; K1 and K2 times
-    at the training shapes beside the plain versions'."""
+    at the training shapes beside the plain versions', and K2's time by pass
+    (k2_passes_us)."""
     rows = []
     shapes = [(TRAIN_B, c, t, name) for name, c, t in TRAIN_SHAPES]
     shapes += [(b, c, t, "extra") for b, c, t in K2_EXTRA]
@@ -411,10 +474,12 @@ def phase_k2_parity() -> list:
                             p1.append(cuda_ms(lambda: plain_residual_stack(x, ks), iters=20))
                     ops_ms, bytes_ms = k2_bound_ms(b, c, t, dtype)
                     ops1, bytes1 = stack_bound_ms(b, c, t, dtype)
+                    passes = k2_passes_us(x, ks, g)
                     row.update(kernel_ms=float(np.median(k2)), plain_ms=float(np.median(p2)),
                                ops_ms=ops_ms, bytes_ms=bytes_ms,
                                k1_kernel_ms=float(np.median(k1)), k1_plain_ms=float(np.median(p1)),
-                               k1_ops_ms=ops1, k1_bytes_ms=bytes1)
+                               k1_ops_ms=ops1, k1_bytes_ms=bytes1,
+                               k2_passes_us=passes, k2_passes_sum_us=sum(passes.values()))
                 rows.append(row)
                 emit({"phase": "k2_parity", **row})
     return rows
@@ -821,6 +886,8 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
          "bound_ms": k2["bfloat16"]["bound_ms"], "bound_by": k2["bfloat16"]["bound_by"],
          "library_ms": None, "per": step, "traced_us_per_step": kinds.get("K2 fused_residual_bwd"),
          "card": smi, "train": k2,
+         "passes_us_per_call": [{"C": r["C"], "T": r["T"], "dtype": r["dtype"], **r["k2_passes_us"]}
+                                for r in k2_rows if "k2_passes_us" in r],
          "errors": "max_abs_err is dx's error over the largest |dx| (float32)"},
         {"name": "framed_dft_magnitude", "route": "cuda",
          "source": "vibravox_tpu_torch/ops/csrc/framed_dft.cu",

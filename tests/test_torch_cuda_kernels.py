@@ -129,7 +129,9 @@ def _rel_err(out, ref):
 
 
 @pytest.mark.parametrize("dtype,tol_dx,tol_dw", [(torch.float32, 1e-4, 2e-4), (torch.bfloat16, 5e-2, 1e-1)])
-@pytest.mark.parametrize("b,c,t", [(2, 32, 700), (2, 64, 1001), (3, 128, 184), (2, 32, 40), (1, 128, 10)])
+@pytest.mark.parametrize(
+    "b,c,t", [(2, 32, 700), (2, 64, 1001), (3, 128, 184), (2, 32, 40), (1, 128, 10), (1, 128, 1248)]
+)
 def test_residual_stack_backward_matches_plain(b, c, t, dtype, tol_dx, tol_dw, cuda):
     x, ks = _stack_inputs(b, c, t, dtype, cuda)
     g = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)

@@ -42,6 +42,7 @@ from vibravox_tpu_torch.ops.pallas_stft import (
     hann_window,
     plain_framed_dft_backward,
     plain_framed_dft_magnitude,
+    reflect_index,
 )
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss, a_weighting_fir, apply_fir
 
@@ -73,6 +74,29 @@ def test_magnitude_and_gradient_match_jax(fft, hop, win, jax_fn, signal):
     assert mag.shape == ref.shape == (2, 1 + 6000 // hop, fft // 2 + 1)
     np.testing.assert_allclose(mag, np.asarray(ref), atol=1e-5 * float(np.max(ref)), rtol=0)
     np.testing.assert_allclose(dx, np.asarray(ref_dx), atol=2e-4 * float(np.abs(ref_dx).max()), rtol=0)
+
+
+# (T, fft, hop, win): signals no longer than fft / 2, where the reflect pad
+# reflects more than once (jnp.pad's "reflect"; torch.stft's own pad raises)
+SHORT = [(900, 2048, 240, 1200), (300, 1024, 120, 600)]
+
+
+@pytest.mark.parametrize("t_len,fft,hop,win", SHORT)
+def test_short_signal_magnitude_and_gradient_match_jax(t_len, fft, hop, win):
+    x_np = np.random.default_rng(t_len).standard_normal((2, t_len)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a: jax_stft_magnitude(a, fft, hop, win), jnp.asarray(x_np))
+    g = np.random.default_rng(fft).standard_normal(ref.shape).astype(np.float32)
+    (ref_dx,) = vjp(jnp.asarray(g))
+    mag, dx = _port_mag_and_grad(x_np, g, fft, hop, win)
+    assert mag.shape == ref.shape == (2, 1 + t_len // hop, fft // 2 + 1)
+    np.testing.assert_allclose(mag, np.asarray(ref), atol=1e-5 * float(np.max(ref)), rtol=0)
+    np.testing.assert_allclose(dx, np.asarray(ref_dx), atol=1e-5 * float(np.abs(ref_dx).max()), rtol=0)
+
+
+@pytest.mark.parametrize("t_len,pad", [(2, 5), (3, 5), (10, 4), (300, 512), (900, 1024)])
+def test_reflect_index_is_numpy_reflect_pad(t_len, pad):
+    got = reflect_index(t_len, pad).numpy()
+    np.testing.assert_array_equal(got, np.pad(np.arange(t_len), pad, mode="reflect"))
 
 
 def test_cpu_backward_wrapper_is_autograd_of_the_plain_magnitude(signal):

@@ -39,23 +39,42 @@
 // once, each looping over tiles (batch row, time tile) in a fixed order, so
 // the partials are (blocks x 4 C^2) floats, 4-35 MB at C = 32-128.
 // Weights are staged through shared memory in chunks of kIc reduction
-// channels as in K1; every product accumulates in f32 with FMAs.
+// channels as in K1.  Every product of a pass goes through two device
+// helpers, channel_product (the recompute of x1, x2; h1, h2, dh1 and dx) and
+// gram_product (dWp and dWd), whose path is chosen at compile time by type:
+//   - bf16 runs them on the tensor cores, mma.sync m16n8k16 with bf16
+//     operands and f32 sums.  Every operand they read is already a bf16
+//     value held in f32 (x, x1, x2 and the weights converted from bf16; h1,
+//     dh2 and dh1 rounded to bf16, as the TPU kernel's bf16 path did), so the
+//     tensor cores form the same products as FMAs would, and only the f32
+//     summation order differs.  The one operand that is not a bf16 value,
+//     dx's reflect fold (a sum of two dh1 values, at most 2 x d columns of a
+//     row), is added in f32 with FMAs beside the mma sums.  Fragments are
+//     gathered element by element from the f32 shared memory.
+//   - f32 keeps FMAs: its results must hold 1e-4 of scale, which TF32 or
+//     bf16 tensor cores cannot.
+// G and the dW sums stay f32 in both.
 //
 // Bound on this card: about 72 C^2 T B FLOP per stack (recompute of x1, x2 and
 // h1, h2: 24; dx: 24; dW: 24) against about 4 (B C T) x 4 bytes moved at the
-// least, so it is bound by arithmetic at the f32 rate of 67 TFLOP/s (f32
-// results must hold 1e-4 of scale, which TF32 or bf16 tensor cores cannot).
-// bf16 rounds h1, dh2 and dh1 to bf16 before their products, as the TPU
-// kernel's bf16 path did; G and the dW sums stay f32.
+// least, so it is bound by arithmetic: at the bf16 tensor-core rate of 989
+// TFLOP/s for bf16, at the f32 rate of 67 TFLOP/s for f32.  mma.sync reaches
+// perhaps 60% of the bf16 rate; the element-wise fragment gathers from f32
+// shared memory, with bank conflicts at some row strides, hold it well below
+// that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 9;   // largest dilation: the halos are sized for it
 constexpr int kOcb = 8;    // output channels per thread in the channel products
 constexpr int kPb = 4;     // time positions per thread in the channel products
@@ -71,126 +90,334 @@ __device__ __forceinline__ int reflect_clamped(int g, int t_len) {
 template <int C>
 constexpr int weight_stage_floats() { return kIc * 3 * (C + kWsPad); }
 
+// ---- bf16 tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ----
+//
+// Fragments (PTX ISA), lane = 4 g + q, each 32-bit register two bf16 with
+// the lower index in the lower half:
+//   A (16 x 16, m x k): a0 = (g, 2q..2q+1), a1 = (g+8, 2q..2q+1),
+//                       a2 = (g, 2q+8..2q+9), a3 = (g+8, 2q+8..2q+9);
+//   B (16 x 8, k x n):  b0 = (2q..2q+1, g), b1 = (2q+8..2q+9, g);
+//   C (16 x 8, f32):    c0, c1 = (g, 2q..2q+1), c2, c3 = (g+8, 2q..2q+1).
+// tests/test_torch_residual_mma.py emulates these maps and the walks below.
+
+// two f32 that hold bf16 values (exact), as one register of bf16 pairs
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += A . B on one m16n8k16 tile
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the largest divisor of n that is at most 8: the tiles of one gram batch
+__host__ __device__ constexpr int gram_batch(int n) {
+  int b = n < 8 ? n : 8;
+  while (n % b != 0) --b;
+  return b;
+}
+
+// channel_product's default: no position takes a fold term
+struct NoFold {
+  __device__ __forceinline__ bool operator()(int) const { return false; }
+  __device__ __forceinline__ float operator()(int, int, int) const { return 0.f; }
+};
+
+// the chunk r0 .. r0 + kIc of reduction channels of w, as f32, into
+// ws[(ii * KT + k) * kWs + output channel].  bf16 issues all of a thread's
+// loads before its first store, so a chunk waits for one memory latency, not
+// one for each of the thread's kPer elements: with mma.sync the products
+// take a few thousand cycles a tile, and the staging's latency led.  The
+// cells are computed again for the stores, not held, to spare registers.
+template <typename T, int C, int KT, bool kTransposed>
+__device__ __forceinline__ void stage_weights(const T* __restrict__ w, float* ws, int r0) {
+  constexpr int kWs = C + kWsPad;
+  constexpr int kElems = C * kIc * KT;
+  static_assert(kElems % kThreads == 0, "the chunk must split evenly over the threads");
+  // element e: its offset in w, and its cell of ws
+  const auto cell = [&](int e, size_t* src) {
+    if (!kTransposed) {
+      const int o = e / (kIc * KT);
+      const int r = e - o * (kIc * KT);  // r = ii * KT + k
+      *src = static_cast<size_t>(o) * C * KT + r0 * KT + r;
+      return r * kWs + o;
+    }
+    const int r = e / C;  // r = oo * KT + k
+    const int i = e - r * C;
+    const int oo = r / KT;
+    const int k = r - oo * KT;
+    *src = static_cast<size_t>(r0 + oo) * C * KT + static_cast<size_t>(i) * KT + k;
+    return r * kWs + i;
+  };
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    constexpr int kPer = kElems / kThreads;
+    T v[kPer];
+    size_t src;
+#pragma unroll
+    for (int n = 0; n < kPer; ++n) {
+      cell(threadIdx.x + n * kThreads, &src);
+      v[n] = w[src];
+    }
+#pragma unroll
+    for (int n = 0; n < kPer; ++n) ws[cell(threadIdx.x + n * kThreads, &src)] = to_f32(v[n]);
+  } else {
+    for (int e = threadIdx.x; e < kElems; e += kThreads) {
+      size_t src;
+      const int dst = cell(e, &src);
+      ws[dst] = to_f32(w[src]);
+    }
+  }
+}
+
 // Y[o, p] = sum_r W[r, o] . operand(r, p) for p in [0, n_pos), o in [0, C).
 // Without kTransposed the reduction runs over the weight's input channel
 // (w laid out (o, i, k)); with it, over the weight's output channel, so the
-// product applies W^T.  KT is the tap count (3 dilated, 1 pointwise).
-// operand(ch, k, p) gives the activation; epilogue(o, p, value) consumes the
-// result.  Every thread of the block must call it (it synchronises).
-template <typename T, int C, int KT, bool kTransposed, typename Operand, typename Epilogue>
+// product applies W^T.  KT is the tap count (3 dilated, 1 pointwise); n_pos
+// is at most TILE + 2 kMaxD.  operand(ch, k, p) gives the activation;
+// epilogue(o, p, value) consumes the result.  Where touches(p), position p
+// also takes fold(ch, k, p) in its operand (the reflect pad's transpose).
+// Every thread of the block must call it (it synchronises).
+//
+// bf16: every operand is a bf16 value held in f32, so the products run on
+// the tensor cores with f32 sums.  The 8 warps share the m16 (output
+// channel) x n8 (position) tiles round-robin; since C / 16 divides 8, a
+// warp keeps one m-tile and its A fragment serves all its tiles.  A k16
+// step is 16 reduction channels at one tap.  The fold terms are not bf16
+// values (a sum of two), so they are added in f32 with FMAs, from the same
+// staged chunk.  f32: FMAs on kOcb x kPb micro-tiles, for the 1e-4
+// tolerance that neither TF32 nor bf16 holds.
+template <typename T, int C, int KT, bool kTransposed, int TILE, typename Operand,
+          typename Epilogue, typename Touches = NoFold, typename Fold = NoFold>
 __device__ __forceinline__ void channel_product(const T* __restrict__ w, float* ws, int n_pos,
-                                                Operand operand, Epilogue epilogue) {
+                                                Operand operand, Epilogue epilogue,
+                                                Touches touches = Touches(), Fold fold = Fold()) {
   constexpr int kWs = C + kWsPad;
-  constexpr int kGroups = C / kOcb;
   static_assert(C % kOcb == 0 && C % kIc == 0, "channel count must divide the tiles");
   const int tid = threadIdx.x;
-  const int npg = (n_pos + kPb - 1) / kPb;
-  const int items = kGroups * npg;
-  for (int base = 0; base < items; base += kThreads) {
-    const int item = base + tid;
-    const bool active = item < items;
-    const int og = active ? item / npg : 0;
-    const int pg = active ? item - og * npg : 0;
-    const int o0 = og * kOcb;
-    int pos[kPb];
-    bool valid[kPb];
-#pragma unroll
-    for (int q = 0; q < kPb; ++q) {
-      const int p = pg + q * npg;
-      valid[q] = active && p < n_pos;
-      pos[q] = min(p, n_pos - 1);
-    }
-    float acc[kOcb][kPb];
-#pragma unroll
-    for (int a = 0; a < kOcb; ++a)
-#pragma unroll
-      for (int q = 0; q < kPb; ++q) acc[a][q] = 0.f;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    constexpr int kMTiles = C / 16;
+    static_assert(kWarps % kMTiles == 0, "the warps must share the m-tiles evenly");
+    constexpr int kNStride = kWarps / kMTiles;  // a warp's n-tiles lie this far apart
+    constexpr int kTiles = ((TILE + 2 * kMaxD + 7) / 8 + kNStride - 1) / kNStride;
+    static_assert(kTiles <= 8, "accumulators: at most 8 tiles of 4 floats a thread");
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, q = lane & 3;
+    const int o0 = (warp % kMTiles) * 16;
+    const int nt0 = warp / kMTiles;
+    const int n_tiles = (n_pos + 7) / 8;
+    float acc[kTiles][4] = {};
 
     for (int r0 = 0; r0 < C; r0 += kIc) {
       __syncthreads();  // operands ready; previous chunk consumed
-      for (int e = tid; e < C * kIc * KT; e += kThreads) {
-        if (!kTransposed) {
-          const int o = e / (kIc * KT);
-          const int r = e - o * (kIc * KT);  // r = ii * KT + k
-          ws[r * kWs + o] = to_f32(w[static_cast<size_t>(o) * C * KT + r0 * KT + r]);
-        } else {
-          const int r = e / C;  // r = oo * KT + k
-          const int i = e - r * C;
-          const int oo = r / KT;
-          const int k = r - oo * KT;
-          ws[r * kWs + i] =
-              to_f32(w[static_cast<size_t>(r0 + oo) * C * KT + static_cast<size_t>(i) * KT + k]);
-        }
-      }
+      stage_weights<T, C, KT, kTransposed>(w, ws, r0);
       __syncthreads();
-      if (active) {
-#pragma unroll 2
-        for (int ii = 0; ii < kIc; ++ii) {
 #pragma unroll
-          for (int k = 0; k < KT; ++k) {
-            float xv[kPb];
+      for (int k = 0; k < KT; ++k) {
+        const float* wk = ws + k * kWs + o0 + g;  // A[m][kk] = wk[kk KT kWs + m]
+        const auto wa = [&](int kk, int m) { return wk[kk * KT * kWs + m]; };
+        const uint32_t a[4] = {pack_bf16(wa(2 * q, 0), wa(2 * q + 1, 0)),
+                               pack_bf16(wa(2 * q, 8), wa(2 * q + 1, 8)),
+                               pack_bf16(wa(2 * q + 8, 0), wa(2 * q + 9, 0)),
+                               pack_bf16(wa(2 * q + 8, 8), wa(2 * q + 9, 8))};
 #pragma unroll
-            for (int q = 0; q < kPb; ++q) xv[q] = operand(r0 + ii, k, pos[q]);
-            const float4* wr = reinterpret_cast<const float4*>(ws + (ii * KT + k) * kWs + o0);
-            const float4 wa = wr[0];
-            const float4 wb = wr[1];
-            const float wv[kOcb] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-            for (int a = 0; a < kOcb; ++a)
-#pragma unroll
-              for (int q = 0; q < kPb; ++q) acc[a][q] = fmaf(wv[a], xv[q], acc[a][q]);
+        for (int j = 0; j < kTiles; ++j) {
+          const int nt = nt0 + kNStride * j;
+          if (nt < n_tiles) {  // the same for the whole warp
+            const int p = nt * 8 + g;
+            const auto bx = [&](int kk) { return p < n_pos ? operand(r0 + kk, k, p) : 0.f; };
+            const uint32_t b[2] = {pack_bf16(bx(2 * q), bx(2 * q + 1)),
+                                   pack_bf16(bx(2 * q + 8), bx(2 * q + 9))};
+            mma_bf16(acc[j], a, b);
           }
         }
       }
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = o0 + g + 8 * (e >> 1);
+          const int p = (nt0 + kNStride * j) * 8 + 2 * q + (e & 1);
+          if (p < n_pos && touches(p)) {
+            for (int ii = 0; ii < kIc; ++ii)
+#pragma unroll
+              for (int k = 0; k < KT; ++k)
+                acc[j][e] = fmaf(ws[(ii * KT + k) * kWs + o], fold(r0 + ii, k, p), acc[j][e]);
+          }
+        }
     }
 #pragma unroll
-    for (int a = 0; a < kOcb; ++a)
+    for (int j = 0; j < kTiles; ++j)
 #pragma unroll
-      for (int q = 0; q < kPb; ++q)
-        if (valid[q]) epilogue(o0 + a, pos[q], acc[a][q]);
+      for (int e = 0; e < 4; ++e) {
+        const int p = (nt0 + kNStride * j) * 8 + 2 * q + (e & 1);
+        if (p < n_pos) epilogue(o0 + g + 8 * (e >> 1), p, acc[j][e]);
+      }
+  } else {
+    constexpr int kGroups = C / kOcb;
+    const int npg = (n_pos + kPb - 1) / kPb;
+    const int items = kGroups * npg;
+    for (int base = 0; base < items; base += kThreads) {
+      const int item = base + tid;
+      const bool active = item < items;
+      const int og = active ? item / npg : 0;
+      const int pg = active ? item - og * npg : 0;
+      const int o0 = og * kOcb;
+      int pos[kPb];
+      bool valid[kPb];
+#pragma unroll
+      for (int q = 0; q < kPb; ++q) {
+        const int p = pg + q * npg;
+        valid[q] = active && p < n_pos;
+        pos[q] = min(p, n_pos - 1);
+      }
+      float acc[kOcb][kPb];
+#pragma unroll
+      for (int a = 0; a < kOcb; ++a)
+#pragma unroll
+        for (int q = 0; q < kPb; ++q) acc[a][q] = 0.f;
+
+      for (int r0 = 0; r0 < C; r0 += kIc) {
+        __syncthreads();  // operands ready; previous chunk consumed
+        stage_weights<T, C, KT, kTransposed>(w, ws, r0);
+        __syncthreads();
+        if (active) {
+#pragma unroll 2
+          for (int ii = 0; ii < kIc; ++ii) {
+#pragma unroll
+            for (int k = 0; k < KT; ++k) {
+              float xv[kPb];
+#pragma unroll
+              for (int q = 0; q < kPb; ++q) {
+                xv[q] = operand(r0 + ii, k, pos[q]);
+                if (touches(pos[q])) xv[q] += fold(r0 + ii, k, pos[q]);
+              }
+              const float4* wr = reinterpret_cast<const float4*>(ws + (ii * KT + k) * kWs + o0);
+              const float4 wa = wr[0];
+              const float4 wb = wr[1];
+              const float wv[kOcb] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+              for (int a = 0; a < kOcb; ++a)
+#pragma unroll
+                for (int q = 0; q < kPb; ++q) acc[a][q] = fmaf(wv[a], xv[q], acc[a][q]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kOcb; ++a)
+#pragma unroll
+        for (int q = 0; q < kPb; ++q)
+          if (valid[q]) epilogue(o0 + a, pos[q], acc[a][q]);
+    }
   }
 }
 
 // out[(o, i, k)] (+)= sum_{j in [j_lo, j_lo + n)} A[o][j] . B[i][j + k * step]
 // for the owned positions of a tile; out is this block's float32 partial,
 // laid out as the torch weight: (o * C + i) * KT + k.  No synchronisation:
-// A and B are complete and not written meanwhile.
-template <int C, int KT>
+// A and B are complete and not written meanwhile.  Each cell of out is
+// written by one thread, once, so the partial's order is fixed.
+//
+// bf16: on the tensor cores, M = o, N = i, and the reduction is time j,
+// zero-padded to a multiple of 16.  A warp keeps one m-tile (its A
+// fragment serves a batch) and takes every kWarps / (C / 16)-th of the
+// (k, n-tile) pairs, in batches of at most 8 tiles, each batch running the
+// whole j loop.  f32: FMAs on M x M micro-tiles.
+template <typename T, int C, int KT>
 __device__ __forceinline__ void gram_product(const float* A, int lda, const float* B, int ldb,
                                              int j_lo, int n, int step, float* out, bool first) {
-  constexpr int M = C >= 64 ? 8 : 4;  // micro-tile edge
-  constexpr int kBlocks = C / M;
-  constexpr int items = KT * kBlocks * kBlocks;
-  for (int item = threadIdx.x; item < items; item += kThreads) {
-    const int k = item / (kBlocks * kBlocks);
-    const int rem = item - k * kBlocks * kBlocks;
-    const int ob = rem / kBlocks;
-    const int ib = rem - ob * kBlocks;
-    float acc[M][M];
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    constexpr int kMTiles = C / 16, kNTiles = C / 8;
+    constexpr int kWarpsPerM = kWarps / kMTiles;
+    static_assert(kWarps % kMTiles == 0 && (KT * kNTiles) % kWarpsPerM == 0,
+                  "the warps must share the tiles evenly");
+    constexpr int kPerWarp = KT * kNTiles / kWarpsPerM;  // (k, n-tile) pairs a warp takes
+    constexpr int kBatch = gram_batch(kPerWarp);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, q = lane & 3;
+    const int o0 = (warp % kMTiles) * 16;
+    const int u0 = warp / kMTiles;
+    const float* a_lo = A + (o0 + g) * lda + j_lo;  // rows g and g + 8 of the m-tile
+    const float* a_hi = a_lo + 8 * lda;
+    for (int v0 = 0; v0 < kPerWarp; v0 += kBatch) {
+      float acc[kBatch][4] = {};
+      for (int j0 = 0; j0 < n; j0 += 16) {
+        const auto at = [&](const float* row, int jj) { return j0 + jj < n ? row[j0 + jj] : 0.f; };
+        const uint32_t a[4] = {pack_bf16(at(a_lo, 2 * q), at(a_lo, 2 * q + 1)),
+                               pack_bf16(at(a_hi, 2 * q), at(a_hi, 2 * q + 1)),
+                               pack_bf16(at(a_lo, 2 * q + 8), at(a_lo, 2 * q + 9)),
+                               pack_bf16(at(a_hi, 2 * q + 8), at(a_hi, 2 * q + 9))};
 #pragma unroll
-    for (int a = 0; a < M; ++a)
+        for (int t = 0; t < kBatch; ++t) {
+          const int u = u0 + kWarpsPerM * (v0 + t);
+          const int k = u / kNTiles;
+          const float* b_row = B + ((u - k * kNTiles) * 8 + g) * ldb + j_lo + k * step;
+          const uint32_t b[2] = {pack_bf16(at(b_row, 2 * q), at(b_row, 2 * q + 1)),
+                                 pack_bf16(at(b_row, 2 * q + 8), at(b_row, 2 * q + 9))};
+          mma_bf16(acc[t], a, b);
+        }
+      }
+      // the batch's cells: all read before any is written, so the partial's
+      // read-modify-write waits for one memory latency, not one per cell
+      const auto cell = [&](int t, int e) {
+        const int u = u0 + kWarpsPerM * (v0 + t);
+        const int k = u / kNTiles;
+        const int o = o0 + g + 8 * (e >> 1);
+        const int i = (u - k * kNTiles) * 8 + 2 * q + (e & 1);
+        return out + (static_cast<size_t>(o) * C + i) * KT + k;
+      };
+      if (!first) {
 #pragma unroll
-      for (int c = 0; c < M; ++c) acc[a][c] = 0.f;
-    const float* ap = A + ob * M * lda + j_lo;
-    const float* bp = B + ib * M * ldb + j_lo + k * step;
-    for (int j = 0; j < n; ++j) {
-      float av[M], bv[M];
+        for (int t = 0; t < kBatch; ++t)
 #pragma unroll
-      for (int a = 0; a < M; ++a) av[a] = ap[a * lda + j];
+          for (int e = 0; e < 4; ++e) acc[t][e] = *cell(t, e) + acc[t][e];
+      }
 #pragma unroll
-      for (int c = 0; c < M; ++c) bv[c] = bp[c * ldb + j];
+      for (int t = 0; t < kBatch; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) *cell(t, e) = acc[t][e];
+    }
+  } else {
+    constexpr int M = C >= 64 ? 8 : 4;  // micro-tile edge
+    constexpr int kBlocks = C / M;
+    constexpr int items = KT * kBlocks * kBlocks;
+    for (int item = threadIdx.x; item < items; item += kThreads) {
+      const int k = item / (kBlocks * kBlocks);
+      const int rem = item - k * kBlocks * kBlocks;
+      const int ob = rem / kBlocks;
+      const int ib = rem - ob * kBlocks;
+      float acc[M][M];
 #pragma unroll
       for (int a = 0; a < M; ++a)
 #pragma unroll
-        for (int c = 0; c < M; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
-    }
+        for (int c = 0; c < M; ++c) acc[a][c] = 0.f;
+      const float* ap = A + ob * M * lda + j_lo;
+      const float* bp = B + ib * M * ldb + j_lo + k * step;
+      for (int j = 0; j < n; ++j) {
+        float av[M], bv[M];
 #pragma unroll
-    for (int a = 0; a < M; ++a)
+        for (int a = 0; a < M; ++a) av[a] = ap[a * lda + j];
 #pragma unroll
-      for (int c = 0; c < M; ++c) {
-        float* cell = out + (static_cast<size_t>(ob * M + a) * C + ib * M + c) * KT + k;
-        *cell = first ? acc[a][c] : *cell + acc[a][c];
+        for (int c = 0; c < M; ++c) bv[c] = bp[c * ldb + j];
+#pragma unroll
+        for (int a = 0; a < M; ++a)
+#pragma unroll
+          for (int c = 0; c < M; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
       }
+#pragma unroll
+      for (int a = 0; a < M; ++a)
+#pragma unroll
+        for (int c = 0; c < M; ++c) {
+          float* cell = out + (static_cast<size_t>(ob * M + a) * C + ib * M + c) * KT + k;
+          *cell = first ? acc[a][c] : *cell + acc[a][c];
+        }
+    }
   }
 }
 
@@ -223,10 +450,10 @@ unit_forward_kernel(const T* __restrict__ x, T* __restrict__ y, const T* __restr
     const int j = e - c * wx;
     xs[c * WX + j] = to_f32(xb[static_cast<size_t>(c) * t_len + reflect_clamped(t0 - d + j, t_len)]);
   }
-  channel_product<T, C, 3, false>(
+  channel_product<T, C, 3, false, TILE>(
       wd, ws, n_pos, [&](int ch, int k, int p) { return xs[ch * WX + p + k * d]; },
       [&](int o, int p, float v) { hs[o * TILE + p] = round_to<T>(v); });
-  channel_product<T, C, 1, false>(
+  channel_product<T, C, 1, false, TILE>(
       wp, ws, n_pos, [&](int ch, int, int p) { return hs[ch * TILE + p]; },
       [&](int o, int p, float v) {
         const float act = v >= 0.f ? v : slope * v;
@@ -243,8 +470,17 @@ constexpr size_t bwd_smem_floats() {
          weight_stage_floats<C>();
 }
 
+// blocks of bytes of shared memory each that fit one SM (228 KB, 1 KB of it
+// reserved per block)
+__host__ __device__ constexpr int blocks_per_sm(size_t smem_bytes) {
+  return static_cast<int>(233472 / (smem_bytes + 1024));
+}
+
+// at least as many blocks per SM as shared memory allows (2 at C = 32, 64; 1
+// at C = 128): the bf16 tensor-core path must not take registers that cost
+// a block of the persistent grid
 template <typename T, typename OutT, int C, int TILE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (blocks_per_sm(bwd_smem_floats<C, TILE>() * sizeof(float))))
 unit_backward_kernel(const T* __restrict__ x, const float* __restrict__ g,
                      OutT* __restrict__ dx, const T* __restrict__ wd,
                      const T* __restrict__ wp, float* __restrict__ partial, int t_len, int d,
@@ -284,14 +520,14 @@ unit_backward_kernel(const T* __restrict__ x, const float* __restrict__ g,
     }
 
     // h1 over the G window; zero outside [0, T), where nothing is an output
-    channel_product<T, C, 3, false>(
+    channel_product<T, C, 3, false, TILE>(
         wd, ws, wg, [&](int ch, int k, int p) { return xs[ch * WX + p + k * d]; },
         [&](int o, int p, float v) {
           const int t = t0 - d + p;
           hs[o * WG + p] = (t >= 0 && t < t_len) ? round_to<T>(v) : 0.f;
         });
     // h2 = Wp . h1, then dh2 = G * leaky'(h2) in place (G is 0 outside [0, T))
-    channel_product<T, C, 1, false>(
+    channel_product<T, C, 1, false, TILE>(
         wp, ws, wg, [&](int ch, int, int p) { return hs[ch * WG + p]; },
         [&](int o, int p, float v) {
           float* cell = ds + o * WG + p;
@@ -299,33 +535,36 @@ unit_backward_kernel(const T* __restrict__ x, const float* __restrict__ g,
         });
     __syncthreads();
     // dWp over the owned rows (window columns d .. d + n_own)
-    gram_product<C, 1>(ds, WG, hs, WG, d, n_own, 0, part + 3 * C * C, first);
+    gram_product<T, C, 1>(ds, WG, hs, WG, d, n_own, 0, part + 3 * C * C, first);
     // dh1 = Wp^T . dh2 over the window (0 outside [0, T), since dh2 is)
-    channel_product<T, C, 1, true>(
+    channel_product<T, C, 1, true, TILE>(
         wp, ws, wg, [&](int ch, int, int p) { return ds[ch * WG + p]; },
         [&](int i, int p, float v) { hs[i * WG + p] = round_to<T>(v); });
     __syncthreads();
     // dWd[o, i, k] = sum_owned dh1[o, t] x_u[i, t + (k-1) d]; in xs columns
     // the tap-k input of WG column j is j + k d
-    gram_product<C, 3>(hs, WG, xs, WX, d, n_own, d, part, first);
+    gram_product<T, C, 3>(hs, WG, xs, WX, d, n_own, d, part, first);
     // dx_u for the owned rows: G + Wd^T applied to the tap-gathered dh1, with
-    // the reflect pad's transpose folded into the k = 0 and k = 2 taps
+    // the reflect pad's transpose as fold terms of the k = 0 and k = 2 taps
     const int left_hi = d;                 // s in [1, d]: k = 0 tap of t = d - s
     const int right_lo = t_len - 1 - d;    // s in [T-1-d, T-2]: k = 2 tap of 2(T-1) - s - d
     OutT* dxb = dx + b * plane;
-    channel_product<T, C, 3, true>(
-        wd, ws, n_own,
-        [&](int ch, int k, int p) {
-          const float* row = hs + ch * WG;
-          const int s = t0 + p;
-          float v = row[p + d - (k - 1) * d];
-          if (k == 0 && s >= 1 && s <= left_hi) v += row[(d - s) - (t0 - d)];
-          if (k == 2 && s >= right_lo && s <= t_len - 2) v += row[(2 * (t_len - 1) - s - d) - (t0 - d)];
-          return v;
-        },
+    channel_product<T, C, 3, true, TILE>(
+        wd, ws, n_own, [&](int ch, int k, int p) { return hs[ch * WG + p + d - (k - 1) * d]; },
         [&](int i, int p, float v) {
           const size_t at = static_cast<size_t>(i) * t_len + t0 + p;
           dxb[at] = from_f32<OutT>(gb[at] + v);
+        },
+        [&](int p) {
+          const int s = t0 + p;
+          return (s >= 1 && s <= left_hi) || (s >= right_lo && s <= t_len - 2);
+        },
+        [&](int ch, int k, int p) {
+          const float* row = hs + ch * WG;
+          const int s = t0 + p;
+          if (k == 0 && s >= 1 && s <= left_hi) return row[(d - s) - (t0 - d)];
+          if (k == 2 && s >= right_lo && s <= t_len - 2) return row[(2 * (t_len - 1) - s - d) - (t0 - d)];
+          return 0.f;
         });
     first = false;
   }

@@ -21,7 +21,8 @@ gradients into a scratch buffer, then their ordered sum into dx).  Their
 only tables are the fft-point twiddles and the fft-long window
 (``_kernel_tables``), built once per resolution on the host in float64 and
 cached on the device.  The CUDA path takes a power-of-two fft from 64 to
-4096 (the JAX function takes any even fft) and any hop.
+4096 (the JAX function takes any even fft), any hop, and T > fft / 2 (K4's
+fold adds one mirror per side); the plain path takes any T >= 2.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ __all__ = [
     "framed_dft_backward",
     "plain_framed_dft_magnitude",
     "plain_framed_dft_backward",
+    "reflect_index",
 ]
 
 MIN_FFT, MAX_FFT = 64, 4096  # the fft sizes the kernels are built for (powers of two)
@@ -55,13 +57,27 @@ def hann_window(win_length: int, dtype=torch.float32, device=None) -> torch.Tens
     return 0.5 - 0.5 * torch.cos(2.0 * torch.pi * n / win_length)
 
 
+def reflect_index(t_len: int, pad: int, device=None) -> torch.Tensor:
+    """Source index of each sample of a length-``t_len`` signal padded by
+    ``pad`` on both sides in numpy's "reflect" mode (``jnp.pad``), which
+    reflects again where ``pad >= t_len``: the index runs with period
+    2 (t_len - 1)."""
+    period = max(2 * (t_len - 1), 1)
+    m = torch.arange(-pad, t_len + pad, device=device).abs() % period
+    return torch.where(m > t_len - 1, period - m, m)
+
+
 def plain_framed_dft_magnitude(
     x: torch.Tensor, fft_size: int, hop: int, win_length: int, eps: float = 1e-8
 ) -> torch.Tensor:
-    """Plain PyTorch version of K3: ``torch.stft`` then sqrt(max(power, eps))."""
+    """Plain PyTorch version of K3: the reflect pad by fft / 2, ``torch.stft``
+    of the padded signal, then sqrt(max(power, eps)).  The pad is
+    ``reflect_index``'s, so any T >= 2 is taken, as by the JAX function
+    (``torch.stft``'s own pad raises for T <= fft / 2)."""
+    padded = x[..., reflect_index(x.shape[-1], fft_size // 2, x.device)]
     spec = torch.stft(
-        x, fft_size, hop_length=hop, win_length=win_length,
-        window=hann_window(win_length, x.dtype, x.device), center=True, pad_mode="reflect",
+        padded, fft_size, hop_length=hop, win_length=win_length,
+        window=hann_window(win_length, x.dtype, x.device), center=False,
         normalized=False, onesided=True, return_complex=True,
     )
     power = spec.real**2 + spec.imag**2
