@@ -8,12 +8,14 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: every kernel source (K1; K2; K3 and K4), one nvcc each, all
    started together, with the nvcc time, the ptxas resource report and the
-   HMMA (tensor-core) instruction count of each kernel; K2's bf16 unit
-   kernels must have HMMA and its f32 ones none;
+   HMMA (tensor-core) and LDSM (ldmatrix) instruction counts of each
+   kernel; K1's bf16 kernel must have HMMA and LDSM and its f32 one no
+   HMMA; K2's bf16 unit kernels must have HMMA and its f32 ones none;
 3. k1_parity: the fused residual stack (K1) against its plain PyTorch version
    at the serving shapes in float32 (atol 2e-5 of scale, TF32 off for the
    plain convolutions) and bfloat16 (2e-2 of scale), plus ragged T = 1001 and
-   the short T = 40, with kernel and plain times by CUDA events;
+   the short T = 40, with kernel and plain times by CUDA events and K1's
+   launch configuration (tile, grid, waves, blocks per SM, registers);
 4. generator_parity: the full-width EBEN generator on the card against the
    same weights on the CPU, float32, atol 1e-4, at PyTorch's default TF32
    settings: the generator itself keeps its convolutions in IEEE float32;
@@ -46,13 +48,16 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
 12. the ``kernels`` line (all four kernels), then the result line.
 
 Phases 3 and 7 change PyTorch's precision settings, and only around the
-comparison; the other phases run the port as a user calls it.
+comparison; the other phases run the port as a user calls it.  Each trace
+is taken again, up to four times, until it records every launch of the
+hand-written kernels that its run made (``cuda_trace``).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -75,6 +80,7 @@ from vibravox_tpu_torch.ops.fused_residual import (
     plain_residual_stack_backward,
     residual_stack,
     residual_stack_backward,
+    residual_stack_config,
 )
 from vibravox_tpu_torch.ops.pallas_stft import (
     framed_dft_backward,
@@ -96,6 +102,8 @@ BATCH = 8  # serving max_batch
 SERVING_SHAPES = (("enc_0,dec_2", 32, 3968), ("enc_1,dec_1", 64, 1984), ("enc_2,dec_0", 128, 496))
 EXTRA_SHAPES = ((3, 64, 1001), (2, 32, 40), (2, 128, 40))  # (B, C, T)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# K1's CUDA kernels: f32, bf16, and the bf16 path's weight relayout
+K1_KERNELS = ("residual_stack_kernel", "residual_stack_mma_kernel", "relayout_weights_kernel")
 N_REQUESTS = 64
 
 
@@ -128,6 +136,29 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+TRACE_ATTEMPTS = 4
+
+
+def cuda_trace(run, whole, what: str):
+    """A CUDA-only torch.profiler trace of ``run()`` and its CUDA events.  A
+    trace can miss kernels launched at its start, so it is taken again, up
+    to TRACE_ATTEMPTS times, until ``whole(events)`` holds: the caller
+    compares the kernels it knows the run launches with those recorded.
+    Each retry is reported; raises if no attempt is whole."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if whole(events):
+            return prof, events
+        emit({"phase": "trace_retry", "trace": what, "attempt": attempt, "cuda_kernels": len(events)})
+    raise AssertionError(f"no trace of {what} recorded all its kernels in {TRACE_ATTEMPTS} attempts")
+
+
 def stack_bound_ms(b: int, c: int, t: int, dtype: torch.dtype):
     """(operations ms, bytes ms) of one stack: 24 C^2 T B FLOP at the type's
     peak; x read and y written once plus the six weight tensors read once."""
@@ -152,9 +183,10 @@ def phase_device() -> str:
     return smi
 
 
-def hmma_counts(lib_path: str) -> dict:
-    """Tensor-core (HMMA) instructions per kernel in a built library's SASS,
-    from ``cuobjdump -sass``; keys are the mangled kernel names."""
+def sass_counts(lib_path: str) -> dict:
+    """Tensor-core (HMMA) and ldmatrix (LDSM) instructions per kernel in a
+    built library's SASS, from ``cuobjdump -sass``; keys are the mangled
+    kernel names."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -163,36 +195,59 @@ def hmma_counts(lib_path: str) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "LDSM": 0}
+        elif name is not None:
+            for op in ("HMMA", "LDSM"):
+                if op in line:
+                    counts[name][op] += 1
     return counts
+
+
+def check_tensor_cores(source: str, counts: dict, bf16_kernel: str, f32_kernel: str, ops) -> None:
+    """Raises unless every bf16 kernel whose name holds ``bf16_kernel`` has
+    each of ``ops`` in its SASS and no f32 kernel whose name holds
+    ``f32_kernel`` has HMMA (a kernel is bf16 if its mangled name has the
+    type)."""
+    bf16 = {k: v for k, v in counts.items() if bf16_kernel in k and "__nv_bfloat16" in k}
+    f32 = {k: v for k, v in counts.items() if f32_kernel in k and "__nv_bfloat16" not in k}
+    if not bf16 or not f32:
+        raise AssertionError(f"{source}: its bf16 or f32 kernels are not in its SASS: {sorted(counts)}")
+    for k, v in bf16.items():
+        if not all(v[op] for op in ops):
+            raise AssertionError(f"{source}: a bf16 kernel lacks {ops}: {k} {v}")
+    for k, v in f32.items():
+        if v["HMMA"]:
+            raise AssertionError(f"{source}: an f32 kernel has HMMA: {k} {v}")
 
 
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together; the HMMA
-    count of each kernel.  K2's bf16 unit kernels must run on the tensor
-    cores and its f32 ones must not."""
+    and LDSM counts of each kernel.  K1's bf16 kernel must run on the tensor
+    cores from ldmatrix fragments and its f32 one must not use them; K2's
+    bf16 unit kernels must have HMMA and its f32 ones none."""
     t0 = time.perf_counter()
     infos = _build.build_all(_build.SOURCES)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
-        hmma = hmma_counts(info["path"])
+        counts = sass_counts(info["path"])
         emit({"phase": "build", "source": name, "wall_seconds_all_sources": wall,
-              "nvcc_seconds": info["seconds"], "hmma_per_kernel": hmma,
+              "nvcc_seconds": info["seconds"], "sass_per_kernel": counts,
               "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                         if any(w in ln for w in ("Compiling entry", "Used", "spill"))]})
-        if name != "fused_residual_bwd":
-            continue
-        units = {k: v for k, v in hmma.items() if "unit_forward_kernel" in k or "unit_backward_kernel" in k}
-        bf16 = {k: v for k, v in units.items() if "__nv_bfloat16" in k}
-        f32 = {k: v for k, v in units.items() if k not in bf16}
-        if not bf16 or not f32:
-            raise AssertionError(f"K2's unit kernels not found in its SASS: {sorted(hmma)}")
-        if not all(bf16.values()):
-            raise AssertionError(f"a bf16 K2 unit kernel has no HMMA: {bf16}")
-        if any(f32.values()):
-            raise AssertionError(f"an f32 K2 unit kernel has HMMA: {f32}")
+        if name == "fused_residual":
+            check_tensor_cores(name, counts, "residual_stack_mma_kernel", "residual_stack_kernel",
+                               ("HMMA", "LDSM"))
+        elif name == "fused_residual_bwd":
+            for kernel in ("unit_forward_kernel", "unit_backward_kernel"):
+                check_tensor_cores(name, counts, kernel, kernel, ("HMMA",))
+
+
+def k1_config(b: int, c: int, t: int, dtype: torch.dtype) -> dict:
+    """K1's launch configuration for a shape, and its waves on this card."""
+    cfg = residual_stack_config(b, c, t, dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg["waves"] = cfg["grid_x"] * cfg["grid_y"] / (cfg["blocks_per_sm"] * sms)
+    return cfg
 
 
 def phase_k1_parity() -> list:
@@ -211,7 +266,8 @@ def phase_k1_parity() -> list:
                 scale = ref.float().abs().max().item()
                 err = (out.float() - ref.float()).abs().max().item()
                 row = {"stacks": name, "B": b, "C": c, "T": t, "dtype": str(dtype)[6:],
-                       "max_abs_err": err, "scale": scale, "tol": TOL[dtype] * scale}
+                       "max_abs_err": err, "scale": scale, "tol": TOL[dtype] * scale,
+                       "config": k1_config(b, c, t, dtype)}
                 if not (math.isfinite(err) and err <= TOL[dtype] * scale):
                     raise AssertionError(f"K1 disagrees with its plain version: {row}")
                 if name != "extra":
@@ -308,7 +364,6 @@ def phase_profile() -> None:
     of the same forwards by kernel kind from a CUDA-only torch.profiler trace
     (no host tracing to slow the host), and the device's idle share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.manual_seed(0)
     model = EBENGenerator(m=4, n=32, p=2)
@@ -323,10 +378,14 @@ def phase_profile() -> None:
             model(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def forwards():
             for _ in range(n_fwd):
                 model(x)
-            torch.cuda.synchronize()
+
+        # float32 K1 is one launch a call, six calls a forward
+        prof, _ = cuda_trace(forwards, lambda events: sum(
+            any(k in e.name for k in K1_KERNELS) for e in events) == 6 * n_fwd, "the serving forwards")
     groups: dict = {}
     top = []
     launches = 0
@@ -336,7 +395,7 @@ def phase_profile() -> None:
         launches += e.count
         us = e.self_device_time_total / n_fwd
         name = e.key
-        kind = ("K1 fused_residual" if "residual_stack_kernel" in name
+        kind = ("K1 fused_residual" if any(k in name for k in K1_KERNELS)
                 else "reflection pad" if "reflection" in name.lower()
                 else "conv (cuDNN/GEMM)" if any(s in name.lower() for s in
                                                 ("conv", "gemm", "xmma", "cudnn", "sm90"))
@@ -399,19 +458,19 @@ K2_PASSES = (("unit_forward d=1", "unit_forward_kernel"), ("unit_forward d=3", "
 def k2_passes_us(x, ks, g) -> dict:
     """K2's device time by pass (µs), from a CUDA-only torch.profiler trace
     of one call after a warm-up call; the kernels in launch order."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     residual_stack_backward(x, ks, g)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        residual_stack_backward(x, ks, g)
-        torch.cuda.synchronize()
     kinds = {kernel for _, kernel in K2_PASSES}
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and any(k in e.name for k in kinds)), key=lambda e: e.time_range.start)
-    if len(events) != len(K2_PASSES) or not all(k in e.name for (_, k), e in zip(K2_PASSES, events)):
-        raise AssertionError(f"K2's trace is not its {len(K2_PASSES)} passes: {[e.name for e in events]}")
+
+    def passes(events):
+        return sorted((e for e in events if any(k in e.name for k in kinds)), key=lambda e: e.time_range.start)
+
+    def whole(events):
+        ev = passes(events)
+        return len(ev) == len(K2_PASSES) and all(k in e.name for (_, k), e in zip(K2_PASSES, ev))
+
+    _, events = cuda_trace(lambda: residual_stack_backward(x, ks, g), whole, "one K2 call")
+    events = passes(events)
     return {label: e.time_range.elapsed_us() for (label, _), e in zip(K2_PASSES, events)}
 
 
@@ -451,7 +510,8 @@ def phase_k2_parity() -> list:
                 torch.cuda.synchronize()
                 scale1 = ref1.float().abs().max().item()
                 err1 = (y1.float() - ref1.float()).abs().max().item()
-                row.update(k1_max_abs_err=err1, k1_scale=scale1, k1_tol=TOL[dtype] * scale1)
+                row.update(k1_max_abs_err=err1, k1_scale=scale1, k1_tol=TOL[dtype] * scale1,
+                           k1_config=k1_config(b, c, t, dtype))
                 if not (math.isfinite(err1) and err1 <= TOL[dtype] * scale1):
                     raise AssertionError(f"K1 disagrees with its plain version: {row}")
                 # bf16 dW over fewer than BF16_DW_MIN_ROWS rows is reported,
@@ -732,13 +792,30 @@ def phase_train() -> dict:
     return out
 
 
+# CUDA launches of each hand-written kernel in one train step: six calls of
+# each; a bf16 K1 call is two launches (the weight relayout, the stack), a
+# K2 call is K2_PASSES, a K3 call one, a K4 call two (frames, then the sum)
+TRAIN_KERNEL_LAUNCHES = {"K1 fused_residual": 12, "K2 fused_residual_bwd": 6 * len(K2_PASSES),
+                         "K3 framed_dft_magnitude": 6, "K4 framed_dft_backward": 12}
+
+
+def train_kind(name: str) -> str:
+    low = name.lower()
+    return ("K1 fused_residual" if any(k in name for k in K1_KERNELS)
+            else "K2 fused_residual_bwd" if any(s in name for s in (
+                "unit_forward_kernel", "unit_backward_kernel", "reduce_partials_kernel"))
+            else "K3 framed_dft_magnitude" if "framed_dft_magnitude_kernel" in name
+            else "K4 framed_dft_backward" if "framed_dft_backward" in name  # both passes
+            else "cuDNN conv / GEMM" if any(s in low for s in ("conv", "gemm", "xmma", "cudnn", "sm90"))
+            else "other")
+
+
 def phase_train_profile() -> dict:
     """Where a train step's time goes (full task, batch 32, bf16): the wall
     of PROFILE_STEPS steps run back to back with no tracing on one device
     batch, the device time of as many more by kernel kind from a CUDA-only
     torch.profiler trace, and the device's idle share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.manual_seed(0)
     task = make_task("cuda", small=False, optimizer=adam(3e-4, betas=(0.5, 0.9)),
@@ -755,10 +832,18 @@ def phase_train_profile() -> dict:
         task.train_step(state, batch)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / PROFILE_STEPS
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def steps():
         for _ in range(PROFILE_STEPS):
             task.train_step(state, batch)
-        torch.cuda.synchronize()
+
+    def whole(events):
+        counts: dict = {}
+        for e in events:
+            counts[train_kind(e.name)] = counts.get(train_kind(e.name), 0) + 1
+        return all(counts.get(k, 0) == n * PROFILE_STEPS for k, n in TRAIN_KERNEL_LAUNCHES.items())
+
+    prof, _ = cuda_trace(steps, whole, "the train steps")
     groups: dict = {}
     top = []
     launches = 0
@@ -768,14 +853,7 @@ def phase_train_profile() -> dict:
         launches += e.count
         us = e.self_device_time_total / PROFILE_STEPS
         name = e.key
-        low = name.lower()
-        kind = ("K1 fused_residual" if "residual_stack_kernel" in name
-                else "K2 fused_residual_bwd" if any(s in name for s in (
-                    "unit_forward_kernel", "unit_backward_kernel", "reduce_partials_kernel"))
-                else "K3 framed_dft_magnitude" if "framed_dft_magnitude_kernel" in name
-                else "K4 framed_dft_backward" if "framed_dft_backward" in name  # both passes
-                else "cuDNN conv / GEMM" if any(s in low for s in ("conv", "gemm", "xmma", "cudnn", "sm90"))
-                else "other")
+        kind = train_kind(name)
         groups[kind] = groups.get(kind, 0.0) + us
         top.append((us, e.count / PROFILE_STEPS, name[:90]))
     device_us = sum(groups.values())
@@ -796,6 +874,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
+    # The phases take several CUDA-only torch.profiler traces in one process,
+    # and a trace can miss the kernels launched at its start (cuda_trace
+    # retries).  By default Kineto also tears CUPTI down after each trace and
+    # re-initialises it lazily in the next, which made such losses more
+    # frequent on an H100 with torch 2.11 (scripts/torch_trace_check.py).
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -816,15 +900,26 @@ def main() -> int:
     return 0
 
 
-def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_per_shape=2):
-    """Sum over the train step's shapes of one launch each, times the
-    launches of each shape per step (each residual shape runs twice)."""
-    rows = [r for r in rows if kernel_key in r and r["dtype"] == dtype]
-    out = {k: launches_per_shape * sum(r[src] for r in rows) for k, src in
-           (("kernel_ms", kernel_key), ("plain_ms", plain_key), ("ops_ms", ops_key),
-            ("bytes_ms", bytes_key))}
-    out["bound_ms"], out["bound_by"] = bound(out["ops_ms"], out["bytes_ms"])
+def summed(rows, keys, ops_key: str, bytes_key: str, times: int = 1) -> dict:
+    """``times`` the sum over rows of each (out, src) of ``keys``, and the
+    bound: the sum of each row's own max(operations, bytes), with the kind
+    that gives most of it."""
+    out = {k: times * sum(r[src] for r in rows) for k, src in keys}
+    led = {"operations": 0.0, "bytes": 0.0}
+    for r in rows:
+        led["operations" if r[ops_key] >= r[bytes_key] else "bytes"] += max(r[ops_key], r[bytes_key])
+    out.update(ops_ms=times * sum(r[ops_key] for r in rows), bytes_ms=times * sum(r[bytes_key] for r in rows),
+               bound_ms=times * sum(led.values()), bound_by=max(led, key=led.get))
     return out
+
+
+def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_per_shape=2):
+    """Sum over the shapes of one launch each, times the launches of each
+    shape (each residual shape runs twice in a train step and in a
+    generator forward)."""
+    rows = [r for r in rows if kernel_key in r and r["dtype"] == dtype]
+    return summed(rows, (("kernel_ms", kernel_key), ("plain_ms", plain_key)), ops_key, bytes_key,
+                  launches_per_shape)
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile) -> dict:
@@ -833,12 +928,14 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
     bfloat16 networks, float32 STFT): each kernel's launches of one step at
     their shapes, measured one by one with CUDA events; ``launches`` is the
     count over the timed fit's steps.  K1's serving numbers (per forward,
-    float32, 1 s bucket, batch 8) stay beside them."""
+    float32 and bfloat16, 1 s bucket, batch 8) stay beside them, and K1's
+    launch configuration at every timed shape.  Every bound is the sum of
+    each shape's own max(operations, bytes)."""
     per_step = train["launches_per_step"]
     kinds = train_profile["by_kind_us"]
-    rows = [r for r in k1_rows if "kernel_ms" in r and r["dtype"] == "float32"]
-    k1_serve = {k: 2 * sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "ops_ms", "bytes_ms")}
-    k1_serve["bound_ms"], k1_serve["bound_by"] = bound(k1_serve["ops_ms"], k1_serve["bytes_ms"])
+    # per forward at the serving bucket: each stack shape runs twice
+    k1_serve = {dt: _per_step(k1_rows, dt, "kernel_ms", "plain_ms", "ops_ms", "bytes_ms")
+                for dt in ("float32", "bfloat16")}
     k1_serve["launches"] = serve_launches
     k1 = {dt: _per_step(k2_rows, dt, "k1_kernel_ms", "k1_plain_ms", "k1_ops_ms", "k1_bytes_ms")
           for dt in ("bfloat16", "float32")}
@@ -846,10 +943,10 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
           for dt in ("bfloat16", "float32")}
 
     def dft(prefix, signals):
-        out = {k: signals * sum(r[f"{prefix}_{src}"] for r in dft_rows) for k, src in
-               (("kernel_ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
-                ("ops_ms", "ops_ms"), ("bytes_ms", "bytes_ms"))}
-        out["bound_ms"], out["bound_by"] = bound(out["ops_ms"], out["bytes_ms"])
+        out = summed(dft_rows, tuple((k, f"{prefix}_{src}") for k, src in
+                                     (("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
+                                      ("library_ms", "library_ms"))),
+                     f"{prefix}_ops_ms", f"{prefix}_bytes_ms", signals)
         out["resolutions"] = [{k: r[k] for k in ("fft", "hop", "win", "frames", "bins",
                                                  f"{prefix}_ms", f"{prefix}_plain_ms",
                                                  f"{prefix}_library_ms", f"{prefix}_ops_ms",
@@ -875,7 +972,11 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
          "ms": k1["bfloat16"]["kernel_ms"], "plain_ms": k1["bfloat16"]["plain_ms"],
          "bound_ms": k1["bfloat16"]["bound_ms"], "bound_by": k1["bfloat16"]["bound_by"],
          "library_ms": None, "per": step, "traced_us_per_step": kinds.get("K1 fused_residual"),
-         "card": smi, "train": k1, "serve_per_forward_float32": k1_serve},
+         "card": smi, "train": k1, "serve_per_forward": k1_serve,
+         "configs": [{"C": r["C"], "T": r["T"], "B": r["B"], "dtype": r["dtype"], **r["config"]}
+                     for r in k1_rows if "kernel_ms" in r]
+         + [{"C": r["C"], "T": r["T"], "B": r["B"], "dtype": r["dtype"], **r["k1_config"]}
+            for r in k2_rows if "kernel_ms" in r]},
         {"name": "fused_residual_stack_backward", "route": "cuda",
          "source": "vibravox_tpu_torch/ops/csrc/fused_residual_bwd.cu",
          "replaces": "vibravox_tpu/ops/fused_residual.py:193",

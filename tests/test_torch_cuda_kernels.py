@@ -67,7 +67,12 @@ def _stack_inputs(b, c, t, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize(
-    "b,c,t", [(2, 32, 700), (2, 32, 1025), (2, 64, 512), (3, 128, 184), (2, 32, 40), (1, 128, 10)]
+    "b,c,t",
+    [(2, 32, 700), (2, 32, 1025), (2, 64, 512), (3, 128, 184), (2, 32, 40), (1, 128, 10),
+     # one sample either side of a whole number of the bf16 kernel's tiles
+     # (232 at C = 32 and 64, 104 at C = 128), and a training shape
+     (2, 32, 463), (2, 32, 465), (2, 64, 231), (2, 64, 233), (2, 128, 207), (2, 128, 209),
+     (32, 128, 1248)],
 )
 def test_residual_stack_kernel_matches_plain(b, c, t, dtype, tol, cuda):
     x, ks = _stack_inputs(b, c, t, dtype, cuda)

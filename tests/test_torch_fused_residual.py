@@ -8,6 +8,13 @@ to the JAX ``_plain_stack`` and to the JAX ``residual_stack`` with
 through a chain of six convolutions.  The CUDA kernel against this plain
 version needs a GPU: ``tests/test_torch_cuda_kernels.py``.
 
+The CUDA kernel's bf16 walk (tensor cores fed by ldmatrix, emulated in
+float64 in ``tests/test_torch_residual_fwd_mma.py``), rounding h1, the leaky
+output and each unit's output to bf16 as the kernel does, is held to the
+JAX ``residual_stack`` in bf16 through interpret-mode Pallas within 2e-2 of
+scale: JAX stitches the edge rows from its plain bf16 convolutions, which
+round h2 to bf16 before the leaky, and sums in another order.
+
 Gradients (dx and all six dW, relaid from WIO) are held to ``jax.vjp`` of
 ``_plain_stack`` and of the interpret-mode fused path (K1 forward, K2
 backward) at C = 32, T = 700, B = 2, with the JAX package's own bars for its
@@ -21,6 +28,7 @@ import torch
 
 from vibravox_tpu.ops.fused_residual import _plain_stack
 from vibravox_tpu.ops.fused_residual import residual_stack as jax_residual_stack
+from tests.test_torch_residual_fwd_mma import bf16, emulate_stack
 from vibravox_tpu_torch.ops.fused_residual import (
     plain_residual_stack_backward,
     residual_stack,
@@ -77,6 +85,24 @@ def test_matches_jax_interpret_kernel(c, t, monkeypatch):
     ref = np.asarray(jax_residual_stack(jnp.asarray(x), _jax_kernels(ks)))
     out = _port(x, ks)
     np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("c,t", [(32, 700), (64, 512), (128, 300)])
+def test_bf16_kernel_walk_matches_jax_bf16(c, t, monkeypatch):
+    monkeypatch.setenv("VIBRAVOX_FUSED_RU", "1")
+    x, ks = _inputs(c, t, seed=5)
+    # bf16 values, as both sides take them
+    x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    ks = [tuple(np.asarray(jnp.asarray(w, jnp.bfloat16).astype(jnp.float32)) for w in pair) for pair in ks]
+    ref = jax_residual_stack(jnp.asarray(x, jnp.bfloat16),
+                             tuple((jnp.asarray(wd, jnp.bfloat16), jnp.asarray(wp, jnp.bfloat16)) for wd, wp in ks))
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    xt, kt = _torch_layout(x, ks)
+    out = emulate_stack(xt.double(), tuple((wd.double(), wp.double()) for wd, wp in kt), rnd=bf16)
+    assert torch.equal(out, bf16(out)), "the walk's outputs are bf16 values"
+    out = out.numpy().transpose(0, 2, 1)
+    np.testing.assert_allclose(out, ref, atol=2e-2 * np.abs(ref).max(), rtol=0)
 
 
 def test_unsupported_device_raises():

@@ -1,10 +1,13 @@
 // Helpers shared by the hand-written kernels of this directory: conversions
-// between a storage type and the float32 the kernels compute in, and torch's
-// reflect index.  Each kernel source is its own translation unit, so these
-// live in an unnamed namespace.
+// between a storage type and the float32 the kernels compute in, torch's
+// reflect index, and the bf16 tensor-core and copy primitives (mma.sync,
+// ldmatrix, cp.async).  Each kernel source is its own translation unit, so
+// these live in an unnamed namespace.
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -29,6 +32,59 @@ __device__ __forceinline__ int reflect(int g, int t_len) {
   if (g < 0) g = -g;
   if (g > t_len - 1) g = 2 * (t_len - 1) - g;
   return g;
+}
+
+// ---- bf16 tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ----
+//
+// Fragments (PTX ISA), lane = 4 g + q, each 32-bit register two bf16 with
+// the lower index in the lower half:
+//   A (16 x 16, m x k): a0 = (g, 2q..2q+1), a1 = (g+8, 2q..2q+1),
+//                       a2 = (g, 2q+8..2q+9), a3 = (g+8, 2q+8..2q+9);
+//   B (16 x 8, k x n):  b0 = (2q..2q+1, g), b1 = (2q+8..2q+9, g);
+//   C (16 x 8, f32):    c0, c1 = (g, 2q..2q+1), c2, c3 = (g+8, 2q..2q+1).
+// tests/test_torch_residual_mma.py and tests/test_torch_residual_fwd_mma.py
+// emulate these maps and the kernels' walks.
+
+// two f32 that hold bf16 values (exact), as one register of bf16 pairs
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += A . B on one m16n8k16 tile
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix.x4 (not transposed): lane l gives the address of row l % 8 of
+// the 8 x 8 bf16 matrix l / 8, 16 bytes, 16-byte aligned; register r of
+// lane 4 g + q receives row g, columns 2q and 2q + 1 of matrix r.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// 16 bytes from global to shared memory without passing through registers
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits for every cp.async group this thread committed
+__device__ __forceinline__ void cp_async_wait_committed() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace

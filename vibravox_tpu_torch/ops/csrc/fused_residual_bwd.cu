@@ -90,32 +90,6 @@ __device__ __forceinline__ int reflect_clamped(int g, int t_len) {
 template <int C>
 constexpr int weight_stage_floats() { return kIc * 3 * (C + kWsPad); }
 
-// ---- bf16 tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ----
-//
-// Fragments (PTX ISA), lane = 4 g + q, each 32-bit register two bf16 with
-// the lower index in the lower half:
-//   A (16 x 16, m x k): a0 = (g, 2q..2q+1), a1 = (g+8, 2q..2q+1),
-//                       a2 = (g, 2q+8..2q+9), a3 = (g+8, 2q+8..2q+9);
-//   B (16 x 8, k x n):  b0 = (2q..2q+1, g), b1 = (2q+8..2q+9, g);
-//   C (16 x 8, f32):    c0, c1 = (g, 2q..2q+1), c2, c3 = (g+8, 2q..2q+1).
-// tests/test_torch_residual_mma.py emulates these maps and the walks below.
-
-// two f32 that hold bf16 values (exact), as one register of bf16 pairs
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += A . B on one m16n8k16 tile
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // the largest divisor of n that is at most 8: the tiles of one gram batch
 __host__ __device__ constexpr int gram_batch(int n) {
   int b = n < 8 ? n : 8;

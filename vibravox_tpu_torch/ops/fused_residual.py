@@ -8,7 +8,8 @@ A ResidualUnit is ``x + leaky(pointwise(dilated_k3(x)))`` with reflect
   JAX package's ``_plain_stack``, and autograd differentiates them;
 * a CUDA tensor runs a ``torch.autograd.Function`` whose forward is the
   hand-written kernel ``csrc/fused_residual.cu`` (K1, counterpart of the
-  Pallas ``_fwd_kernel``) and whose backward is ``csrc/fused_residual_bwd.cu``
+  Pallas ``_fwd_kernel``: f32 FMAs for float32, bf16 tensor cores for
+  bfloat16) and whose backward is ``csrc/fused_residual_bwd.cu``
   (K2, counterpart of ``_bwd_kernel``), or raises.  Neither falls back to
   the plain version.
 
@@ -36,6 +37,7 @@ from vibravox_tpu_torch.ops.conv import conv1d
 
 __all__ = [
     "residual_stack",
+    "residual_stack_config",
     "plain_residual_stack",
     "residual_stack_backward",
     "plain_residual_stack_backward",
@@ -81,10 +83,12 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_residual")
     lib.vx_residual_stack.restype = ctypes.c_int
     lib.vx_residual_stack.argtypes = (
-        [ctypes.c_void_p] * 8  # x, y, wd0, wp0, wd1, wp1, wd2, wp2
+        [ctypes.c_void_p] * 9  # x, y, wd0, wp0, wd1, wp1, wd2, wp2, wt
         + [ctypes.c_int] * 4  # batch, channels, t_len, dtype
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # slope, device, stream
     )
+    lib.vx_residual_stack_config.restype = ctypes.c_int
+    lib.vx_residual_stack_config.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.vx_error_string.restype = ctypes.c_char_p
     lib.vx_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -146,12 +150,28 @@ def _backward_blocks(b: int, c: int, t: int, dtype: int, device: int) -> int:
     return blocks.value
 
 
+def residual_stack_config(b: int, c: int, t: int, dtype: torch.dtype, device: int = 0) -> dict:
+    """K1's launch configuration for a shape on a CUDA device: the time
+    tile, the grid, the blocks per SM that occupancy allows, the dynamic
+    shared memory, and the registers and local (spill) bytes per thread."""
+    lib = _library()
+    out = (ctypes.c_int * 7)()
+    err = lib.vx_residual_stack_config(b, c, t, _DTYPES[dtype], device, out)
+    if err != 0:
+        raise RuntimeError(f"fused residual stack config failed: {lib.vx_error_string(err).decode()}")
+    keys = ("tile", "grid_x", "grid_y", "blocks_per_sm", "smem_bytes", "registers", "local_bytes")
+    return dict(zip(keys, out))
+
+
 def _launch_forward(x: torch.Tensor, flat, slope: float) -> torch.Tensor:
     b, c, t = x.shape
     y = torch.empty_like(x)
+    # bf16 scratch: the six weights laid out per (unit, tap) for the kernel's
+    # 16-byte copies; float32 takes none
+    wt = torch.empty(12 * c * c if x.dtype == torch.bfloat16 else 0, device=x.device, dtype=x.dtype)
     lib = _library()
     err = lib.vx_residual_stack(
-        x.data_ptr(), y.data_ptr(), *[w.data_ptr() for w in flat],
+        x.data_ptr(), y.data_ptr(), *[w.data_ptr() for w in flat], wt.data_ptr(),
         b, c, t, _DTYPES[x.dtype], float(slope), x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
