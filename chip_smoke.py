@@ -45,7 +45,26 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     of K1-K4 over the timed fit;
 11. train_profile: the untraced train-step wall, its device time by kernel
     kind from a CUDA-only trace, and the idle share;
-12. the ``kernels`` line (all four kernels), then the result line.
+12. eval_parity: the full task's float32 eval step on the first batch of
+    the CLI's test loader (batch 1, a centred 2.5 s crop) and, as an extra
+    shape, on one whole 5.7 s synthetic test utterance, on the card
+    against the CPU (logs 1e-4 relative, enhanced audio 1e-4 of scale), K1
+    and K3 six launches each; then K1 in float32 and K3 against their
+    plain versions at the shapes the CLI batch's forward ran, and K1 at the
+    whole utterance's (T no multiple of K1's tile), with times and K1's
+    launch configuration (``eval_k1`` and ``eval_k3`` lines);
+13. cli: this slice's main path.  ``vibravox_tpu_torch.run.main`` with
+    ``lightning_datamodule=bwe lightning_module=eben callbacks=bwe_checkpoint
+    logging=csv``, the synthetic source (64 utterances) without
+    augmentation, two epochs, four validation and four test batches, in a
+    temporary run_dir: the K1-K4 launches of fit and of test("last") are
+    asserted (test: K1 and K3 only), with the fit's wall, the test's seconds
+    per batch (the eval step on the card, the host metrics, STOI) and the
+    test metrics; ``last``, ``index.json`` and the top-2 checkpoints must
+    exist; a second run with ``max_epochs=3`` must resume at epoch 2, its
+    Adam step counts on the CPU, its train steps timed against the first
+    run's;
+14. the ``kernels`` line (all four kernels), then the result line.
 
 Phases 3 and 7 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
@@ -70,6 +89,7 @@ import torch
 from vibravox_tpu_torch.core.loop import Trainer
 from vibravox_tpu_torch.core.optim import adam, sgd
 from vibravox_tpu_torch.data.bwe import BWEDataModule
+from vibravox_tpu_torch.data.sources import SyntheticVibravoxSource
 from vibravox_tpu_torch.device import strict_float32
 from vibravox_tpu_torch.losses.gan import FeatureMatchingLoss, HingeLoss
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
@@ -736,7 +756,7 @@ def phase_train() -> dict:
                        collate_strategy="constant_length-2500-ms", batch_size=TRAIN_B,
                        num_workers=6, synthetic_size=TRAIN_B * (TRAIN_STEPS + 1), seed=42)
     trainer = Trainer(max_epochs=1, log_every_n_steps=1, limit_train_batches=TRAIN_WARMUP,
-                      sync_every_step=True)
+                      limit_val_batches=0, sync_every_step=True)
     trainer.fit(task, dm)
     warm_logs = len(trainer.logged)
     gen0 = [p.detach().clone() for p in task.generator.parameters()]
@@ -869,6 +889,333 @@ def phase_train_profile() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the workflow slice: the eval path and the CLI
+# ---------------------------------------------------------------------------
+
+# a whole 5.7 s synthetic test utterance, an extra shape beside the CLI's
+# test batch: its residual stacks run at T = 22848 / 11424 / 2856, no
+# multiple of a K1 tile (f32 128 / 64 / 32)
+EVAL_UTTERANCE = 6
+CLI_ARGS = ("lightning_datamodule=bwe", "lightning_module=eben", "callbacks=bwe_checkpoint",
+            "logging=csv", "lightning_datamodule.dataset_name_principal=synthetic",
+            "~lightning_datamodule.data_augmentation", "++lightning_datamodule.synthetic_size=64",
+            "++trainer.limit_val_batches=4", "++trainer.limit_test_batches=4")
+CLI_STEPS_PER_EPOCH, CLI_VAL_BATCHES, CLI_TEST_BATCHES = 2, 4, 4  # 64 utterances at batch 32
+
+
+def cli_test_batch() -> dict:
+    """The first batch of the CLI's test loader: the data module that
+    ``run.main(CLI_ARGS)`` makes, after ``setup("test")`` (batch 1, the eval
+    collate's centred 2.5 s crop).  Its loader runs in this process
+    (num_workers 0); the eval collate is deterministic either way."""
+    from vibravox_tpu_torch import run
+    from vibravox_tpu_torch.core.config import compose, instantiate
+
+    cfg = compose(run.CONFIG_DIR, "run", list(CLI_ARGS))
+    run.port_targets(cfg, "cuda")
+    datamodule = instantiate(dict(cfg.lightning_datamodule, num_workers=0))
+    datamodule.setup("test")
+    return next(iter(datamodule.test_dataloader()))
+
+
+def record_shapes(run) -> tuple:
+    """(B, C, T) of every fused residual stack the generator runs in
+    ``run()``, and (B, T, fft, hop, win) of every framed-DFT magnitude the
+    STFT loss takes there."""
+    import vibravox_tpu_torch.models.eben_generator as generator_module
+    import vibravox_tpu_torch.ops.stft as stft_module
+
+    stacks, dfts = [], []
+    originals = generator_module.residual_stack, stft_module.framed_dft_magnitude
+
+    def stack(x, *args, **kwargs):
+        stacks.append(tuple(x.shape))
+        return originals[0](x, *args, **kwargs)
+
+    def dft(x, fft, hop, win, *args, **kwargs):
+        dfts.append((*x.shape, fft, hop, win))
+        return originals[1](x, fft, hop, win, *args, **kwargs)
+
+    generator_module.residual_stack, stft_module.framed_dft_magnitude = stack, dft
+    try:
+        run()
+    finally:
+        generator_module.residual_stack, stft_module.framed_dft_magnitude = originals
+    return stacks, dfts
+
+
+def eval_step_parity(cpu, gpu, states, batch, label: str) -> tuple:
+    """The eval step on ``batch`` on the card against the CPU: the logs
+    within 1e-4 relative, the enhanced audio within 1e-4 of its scale, K1
+    and K3 six launches each, no K2 or K4.  Returns the stack and framed-DFT
+    shapes the card's step ran."""
+    want = cpu.eval_step(states[0], batch)
+    got = {}
+    reset_counts()
+    stacks, dfts = record_shapes(
+        lambda: got.update(gpu.eval_step(states[1], {k: v.cuda() for k, v in batch.items()})))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log_err = {k: abs(float(got["logs"][k]) - float(v)) / max(abs(float(v)), 1e-12)
+               for k, v in want["logs"].items()}
+    scale = want["enhanced"].abs().max().item()
+    enh_err = (got["enhanced"].cpu() - want["enhanced"]).abs().max().item()
+    emit({"phase": "eval_parity", "batch": label, "B": int(batch["audio_body_conducted"].shape[0]),
+          "T": int(batch["audio_body_conducted"].shape[1]), "T_cut": int(want["enhanced"].shape[1]),
+          "logs_rel_err": log_err, "logs_tol": 1e-4, "enhanced_max_abs_err": enh_err,
+          "enhanced_scale": scale, "enhanced_tol": 1e-4 * scale, "launches": counts,
+          "stack_shapes": stacks, "dft_shapes": dfts,
+          "logs_gpu": {k: float(v) for k, v in got["logs"].items()}})
+    if set(got["logs"]) != set(want["logs"]) or not max(log_err.values()) <= 1e-4:
+        raise AssertionError(f"the eval step's losses on the card differ from the CPU's ({label})")
+    if not (got["enhanced"].shape == want["enhanced"].shape and enh_err <= 1e-4 * scale):
+        raise AssertionError(f"the eval step's enhanced audio on the card differs from the CPU's ({label})")
+    if counts != {"K1": 6, "K2": 0, "K3": 6, "K4": 0}:
+        raise AssertionError(f"unexpected kernel launches in one eval step ({label}): {counts}")
+    return stacks, dfts
+
+
+def eval_k1_row(b: int, c: int, t: int, seed: int, label: str) -> dict:
+    """K1 in float32 against its plain version (2e-5 of scale) at one eval
+    stack shape, with its launch configuration and times."""
+    x, ks = stack_inputs(b, c, t, torch.float32, seed=seed)
+    out, ref = residual_stack(x, ks), plain_residual_stack(x, ks)
+    torch.cuda.synchronize()
+    sc = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    config = k1_config(b, c, t, torch.float32)
+    k_ms, p_ms = [], []
+    for _ in range(2):
+        k_ms.append(cuda_ms(lambda: residual_stack(x, ks)))
+        p_ms.append(cuda_ms(lambda: plain_residual_stack(x, ks)))
+    ops_ms, bytes_ms = stack_bound_ms(b, c, t, torch.float32)
+    bound_ms, bound_by = bound(ops_ms, bytes_ms)
+    row = {"batch": label, "B": b, "C": c, "T": t, "dtype": "float32", "max_abs_err": err, "scale": sc,
+           "tol": TOL[torch.float32] * sc, "t_mod_tile": t % config["tile"], "config": config,
+           "kernel_ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "eval_k1", **row})
+    if not (math.isfinite(err) and err <= TOL[torch.float32] * sc):
+        raise AssertionError(f"K1 disagrees with its plain version at an eval shape: {row}")
+    return row
+
+
+def eval_k3_row(b: int, t: int, fft: int, hop: int, win: int, gen: torch.Generator) -> dict:
+    """K3 against its plain version at one eval shape (K3_TOL of scale),
+    with kernel, plain and library (torch.stft(...).abs()) times, in turns."""
+    x = (torch.randn(b, t, generator=gen) * 0.1).cuda()
+    mag, ref = framed_dft_magnitude(x, fft, hop, win), plain_framed_dft_magnitude(x, fft, hop, win)
+    torch.cuda.synchronize()
+    window = hann_window(win, device="cuda")
+    times = {k: [] for k in ("k3", "p3", "l3")}
+    for _ in range(3):
+        times["k3"].append(cuda_ms(lambda: framed_dft_magnitude(x, fft, hop, win), iters=20))
+        times["p3"].append(cuda_ms(lambda: plain_framed_dft_magnitude(x, fft, hop, win), iters=20))
+        times["l3"].append(cuda_ms(lambda: torch.stft(
+            x, fft, hop_length=hop, win_length=win, window=window, center=True,
+            pad_mode="reflect", return_complex=True).abs(), iters=20))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    ops_ms, bytes_ms = dft_bound_ms(b, t, fft, hop, win, backward=False)
+    bound_ms, bound_by = bound(ops_ms, bytes_ms)
+    row = {"B": b, "T": t, "fft": fft, "hop": hop, "win": win, "frames": 1 + t // hop,
+           "bins": fft // 2 + 1, "k3_err_over_scale": rel_err(mag, ref), "k3_tol": K3_TOL,
+           "kernel_ms": med["k3"], "plain_ms": med["p3"], "library_ms": med["l3"],
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "beats_library": med["k3"] < med["l3"]}
+    emit({"phase": "eval_k3", **row})
+    if not (mag.shape == ref.shape and math.isfinite(row["k3_err_over_scale"])
+            and row["k3_err_over_scale"] <= K3_TOL):
+        raise AssertionError(f"K3 disagrees with its plain version at an eval shape: {row}")
+    return row
+
+
+def phase_eval_parity() -> dict:
+    """The eval step of the full eben.yaml task on the card against the CPU
+    with the same weights (``eval_step_parity``), on the first batch of the
+    CLI's test loader and, as an extra shape, on one whole synthetic test
+    utterance.  Then K1 in float32 and K3 against their plain versions at
+    the shapes the CLI batch's forward ran (``eval_k1`` and ``eval_k3``
+    lines, with times), and K1 at the whole utterance's stack shapes, no
+    multiple of K1's tile (``eval_k1`` lines labelled ``whole_utterance``)."""
+    torch.manual_seed(0)
+    opt = adam(3e-4, betas=(0.5, 0.9))
+    cpu = make_task("cpu", small=False, optimizer=opt, compute_dtype="bfloat16")
+    gpu = make_task("cuda", small=False, optimizer=opt, compute_dtype="bfloat16")
+    gpu.generator.load_state_dict(cpu.generator.state_dict(), strict=True)
+    gpu.discriminator.load_state_dict(cpu.discriminator.state_dict(), strict=True)
+    states = (cpu.init_state(0), gpu.init_state(0))
+    stacks, dfts = eval_step_parity(cpu, gpu, states, cli_test_batch(), "cli_test_batch")
+    item = SyntheticVibravoxSource(EVAL_UTTERANCE + 1, split="speech_clean-test")[EVAL_UTTERANCE]
+    whole = {k: torch.from_numpy(item[k][None, :, None]) for k in ("audio_body_conducted", "audio_airborne")}
+    whole_stacks, _ = eval_step_parity(cpu, gpu, states, whole, "whole_utterance")
+
+    out = {"k1": [], "k1_whole_utterance": [], "k3": []}
+    with torch.inference_mode(), strict_float32():
+        for i, (b, c, t) in enumerate(dict.fromkeys(stacks)):
+            out["k1"].append(eval_k1_row(b, c, t, 100 + i, "cli_test_batch"))
+        for i, (b, c, t) in enumerate(dict.fromkeys(whole_stacks)):
+            row = eval_k1_row(b, c, t, 110 + i, "whole_utterance")
+            if not row["t_mod_tile"]:
+                raise AssertionError(f"a whole-utterance shape is a multiple of K1's tile: {row}")
+            out["k1_whole_utterance"].append(row)
+        gen = torch.Generator().manual_seed(11)
+        for b, t, fft, hop, win in dict.fromkeys(dfts):
+            out["k3"].append(eval_k3_row(b, t, fft, hop, win, gen))
+    if not (len(out["k1"]) == len(out["k1_whole_utterance"]) == 3 and len(out["k3"]) == len(RESOLUTIONS)):
+        raise AssertionError(f"the eval forwards ran {[len(v) for v in out.values()]} distinct shapes")
+    if not all(b == 1 for b, _, _ in stacks):
+        raise AssertionError(f"the CLI's test batch is not batch 1: {stacks}")
+    return out
+
+
+def phase_cli() -> dict:
+    """The CLI's main path: ``vibravox_tpu_torch.run.main`` with CLI_ARGS,
+    at full width, in a temporary run_dir (fit two epochs of two steps at
+    batch 32, bf16, validating four batch-1 float32 batches an epoch,
+    checkpoints by validation STOI, then test("last") on four batches),
+    then again with max_epochs 3, which resumes at epoch 2.  The counts are
+    reset before each run; fit and test are told apart at the test's entry.
+    The test pass is timed per batch: the eval step (wall, synchronised,
+    and CUDA events) and the host metrics (SI-SDR, the copy, STOI).  Each
+    train step is timed by CUDA events around it (no added sync; a host
+    stall inside the step shows as device time), and the devices of both
+    Adams' step counts are read after it: they must be on the CPU in both
+    runs, as in a fresh one (restored onto the card, they cost a host sync
+    per parameter); the resumed run's steps are reported beside the first
+    run's, the first step of each and the median of the rest."""
+    import tempfile
+
+    from vibravox_tpu_torch import run
+    from vibravox_tpu_torch.tasks import se_metrics
+
+    timing = {"eval_step_wall": [], "eval_step_device": [], "metrics": [], "stoi": []}
+    marks: dict = {}
+    train_steps = {"events": [], "adam_step_devices": set()}
+    train_step, eval_step, eval_metrics, stoi, test = (
+        EBENTask.train_step, EBENTask.eval_step, EBENTask.eval_metrics, se_metrics.stoi, Trainer.test)
+
+    def timed_train_step(self, state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(self, state, batch)
+        end.record()
+        train_steps["events"].append((start, end))
+        train_steps["adam_step_devices"].update(
+            str(s["step"].device) for opt in (out[0].generator_optimizer, out[0].discriminator_optimizer)
+            for s in opt.state.values() if isinstance(s.get("step"), torch.Tensor))
+        return out
+
+    def timed_eval_step(self, state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = eval_step(self, state, batch)
+        end.record()
+        end.synchronize()
+        timing["eval_step_wall"].append(time.perf_counter() - t0)
+        timing["eval_step_device"].append(start.elapsed_time(end) / 1e3)
+        return out
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            timing[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def marked_test(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["fit_end"], marks["fit_counts"] = time.perf_counter(), read_counts()
+        for v in timing.values():
+            v.clear()  # the test pass's timings only
+        out = test(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        marks["test_end"] = time.perf_counter()
+        return out
+
+    def run_cli(run_dir, epochs):
+        reset_counts()
+        train_steps["events"].clear()
+        train_steps["adam_step_devices"].clear()
+        t0 = time.perf_counter()
+        metrics = run.main([*CLI_ARGS, f"++run_dir={run_dir}", f"++trainer.max_epochs={epochs}"])
+        counts = read_counts()
+        fit = marks["fit_counts"]
+        steps = {"train_step_ms": [a.elapsed_time(b) for a, b in train_steps["events"]],
+                 "adam_step_devices": sorted(train_steps["adam_step_devices"])}
+        return metrics, {"fit": fit, "test": {k: counts[k] - fit[k] for k in counts}}, \
+            marks["fit_end"] - t0, marks["test_end"] - marks["fit_end"], steps
+
+    def want(steps, val_batches, test_batches):
+        fit = {"K1": 6 * (steps + val_batches), "K2": 6 * steps, "K3": 6 * (steps + val_batches),
+               "K4": 6 * steps}
+        return {"fit": fit, "test": {"K1": 6 * test_batches, "K2": 0, "K3": 6 * test_batches, "K4": 0}}
+
+    EBENTask.train_step, EBENTask.eval_step = timed_train_step, timed_eval_step
+    EBENTask.eval_metrics = timed(eval_metrics, "metrics")
+    se_metrics.stoi, Trainer.test = timed(stoi, "stoi"), marked_test
+    try:
+        with tempfile.TemporaryDirectory(prefix="vibravox_cli_") as run_dir:
+            metrics, launches, fit_s, test_s, steps = run_cli(run_dir, 2)
+            test_timing = {k: list(v) for k, v in timing.items()}
+            ckpt = Path(run_dir) / "checkpoints"
+            index = json.loads((ckpt / "index.json").read_text())
+            progress = json.loads((ckpt / "trainer_state.json").read_text())
+            top_k = sorted(p.name for p in ckpt.glob("step_*"))
+            have_last = (ckpt / "last" / "state.pt").exists()
+            metrics2, launches2, fit2_s, test2_s, steps2 = run_cli(run_dir, 3)
+            progress2 = json.loads((ckpt / "trainer_state.json").read_text())
+    finally:
+        EBENTask.train_step, EBENTask.eval_step, EBENTask.eval_metrics = train_step, eval_step, eval_metrics
+        se_metrics.stoi, Trainer.test = stoi, test
+
+    per_batch = {k: [1e3 * x for x in v] for k, v in test_timing.items()}
+    fit_out = {"phase": "cli_fit", "epochs": 2, "steps": 2 * CLI_STEPS_PER_EPOCH, "B": 32,
+               "val_batches_per_epoch": CLI_VAL_BATCHES, "fit_wall_s": fit_s,
+               "launches": launches["fit"], "checkpoints": top_k, "index": index,
+               "trainer_state": progress, "last": have_last, **steps}
+    test_out = {"phase": "cli_test", "batches": CLI_TEST_BATCHES, "test_wall_s": test_s,
+                "test_s_per_batch": test_s / CLI_TEST_BATCHES,
+                "eval_step_wall_ms": per_batch["eval_step_wall"],
+                "eval_step_device_ms": per_batch["eval_step_device"],
+                "host_metrics_ms": per_batch["metrics"], "stoi_ms": per_batch["stoi"],
+                "launches": launches["test"], "metrics": metrics}
+    def by_position(ms):
+        # each run's first step carries its new task's first use: compared apart
+        return {"first_step_ms": ms[0], "later_steps_median_ms": float(np.median(ms[1:]))}
+
+    first, resumed = by_position(steps["train_step_ms"]), by_position(steps2["train_step_ms"])
+    resume_out = {"phase": "cli_resume", "epochs": 3, "fit_wall_s": fit2_s, "test_wall_s": test2_s,
+                  "launches": launches2, "trainer_state": progress2, "metrics": metrics2, **steps2,
+                  "train_steps": resumed, "first_run_train_steps": first,
+                  "later_steps_resumed_over_first": resumed["later_steps_median_ms"]
+                  / first["later_steps_median_ms"]}
+    for out in (fit_out, test_out, resume_out):
+        emit(out)
+    if launches != want(2 * CLI_STEPS_PER_EPOCH, 2 * CLI_VAL_BATCHES, CLI_TEST_BATCHES):
+        raise AssertionError(f"kernel launches {launches} on the CLI's fit and test")
+    if launches2 != want(CLI_STEPS_PER_EPOCH, CLI_VAL_BATCHES, CLI_TEST_BATCHES):
+        raise AssertionError(f"kernel launches {launches2} on the resumed run")
+    if steps["adam_step_devices"] != ["cpu"] or steps2["adam_step_devices"] != ["cpu"]:
+        raise AssertionError(f"Adam's step counts on {steps['adam_step_devices']}, then on "
+                             f"{steps2['adam_step_devices']} after the resume: not on the CPU")
+    if len(steps["train_step_ms"]) != 2 * CLI_STEPS_PER_EPOCH or len(steps2["train_step_ms"]) != CLI_STEPS_PER_EPOCH:
+        raise AssertionError(f"timed train steps {steps} then {steps2}")
+    if progress != {"epoch": 1, "global_step": 4} or progress2 != {"epoch": 2, "global_step": 6}:
+        raise AssertionError(f"progress {progress} then {progress2}: the run did not resume at epoch 2")
+    if not (have_last and len(top_k) == 2 and top_k == sorted(f"step_{int(s):08d}" for s in index)):
+        raise AssertionError(f"checkpoints: last {have_last}, top-k {top_k}, index {index}")
+    for m in (metrics, metrics2):
+        if not ({"test/torchmetrics_stoi", "test/torchmetrics_si_sdr"} <= set(m)
+                and all(math.isfinite(v) for v in m.values()) and 0 < m["test/torchmetrics_stoi"] <= 1):
+            raise AssertionError(f"test metrics {m}")
+    if not all(len(v) == CLI_TEST_BATCHES for v in per_batch.values()):
+        raise AssertionError(f"timed test batches {per_batch}")
+    return {"fit": fit_out, "test": test_out, "resume": resume_out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -892,7 +1239,10 @@ def main() -> int:
     phase_train_parity()
     train = phase_train()
     train_profile = phase_train_profile()
-    emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile))
+    evals = phase_eval_parity()
+    cli = phase_cli()
+    emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
+                      evals, cli))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -922,15 +1272,42 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
                   launches_per_shape)
 
 
-def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile) -> dict:
+def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
+                 evals, cli) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
-    ``bound_ms`` are per train step of the main path (batch 32, 2.5 s,
-    bfloat16 networks, float32 STFT): each kernel's launches of one step at
-    their shapes, measured one by one with CUDA events; ``launches`` is the
-    count over the timed fit's steps.  K1's serving numbers (per forward,
-    float32 and bfloat16, 1 s bucket, batch 8) stay beside them, and K1's
-    launch configuration at every timed shape.  Every bound is the sum of
-    each shape's own max(operations, bytes)."""
+    ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
+    float32 STFT): each kernel's launches of one step at their shapes,
+    measured one by one with CUDA events.  ``launches`` is the count over
+    this slice's main path, the CLI's first run (fit and test);
+    ``launches_by_path`` has it per path, the timed fit of the train phase
+    included.  K1's serving numbers (per forward, float32 and bfloat16, 1 s
+    bucket, batch 8) and its float32 eval numbers (per eval forward of the
+    CLI's test batch, batch 1, and of the whole utterance, an extra shape)
+    stay beside them, with K1's launch configuration at every timed shape;
+    so do K3's eval numbers (per eval step of the CLI's test batch).  Every
+    bound is the sum of each shape's own max(operations, bytes)."""
+    def by_path(key):
+        return {"train_fit": train["launches"][key],
+                "cli_fit": cli["fit"]["launches"][key], "cli_test": cli["test"]["launches"][key],
+                "cli_resumed_fit": cli["resume"]["launches"]["fit"][key],
+                "cli_resumed_test": cli["resume"]["launches"]["test"][key]}
+
+    main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
+    eval_rows = evals["k1"] + evals["k1_whole_utterance"]
+
+    def k1_eval(rows, what):
+        # each stack shape runs twice in a generator forward
+        out = summed(rows, (("kernel_ms", "kernel_ms"), ("plain_ms", "plain_ms")), "ops_ms", "bytes_ms", 2)
+        out.update(per=what, shapes=[{k: r[k] for k in ("B", "C", "T", "t_mod_tile")} for r in rows])
+        return out
+
+    k1_eval_cli = k1_eval(evals["k1"], "per eval forward of the CLI's test batch (batch 1, float32)")
+    k1_eval_cli["launches_per_test_batch"] = cli["test"]["launches"]["K1"] // CLI_TEST_BATCHES
+    k3_eval = summed(evals["k3"], (("kernel_ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                                   ("library_ms", "library_ms")), "ops_ms", "bytes_ms", 2)
+    k3_eval.update(per="per eval step of the CLI's test batch: 3 resolutions x 2 signals, batch 1",
+                   launches_per_test_batch=cli["test"]["launches"]["K3"] // CLI_TEST_BATCHES,
+                   resolutions=evals["k3"])
     per_step = train["launches_per_step"]
     kinds = train_profile["by_kind_us"]
     # per forward at the serving bucket: each stack shape runs twice
@@ -964,23 +1341,27 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
         {"name": "fused_residual_stack", "route": "cuda",
          "source": "vibravox_tpu_torch/ops/csrc/fused_residual.cu",
          "replaces": "vibravox_tpu/ops/fused_residual.py:140",
-         "launches": train["launches"]["K1"], "launches_per_step": per_step["K1"],
-         "max_abs_err": max([r["max_abs_err"] for r in k1_rows if r["dtype"] == "float32"]
+         "launches": main_path["K1"], "launches_by_path": by_path("K1"),
+         "launches_per_step": per_step["K1"],
+         "max_abs_err": max([r["max_abs_err"] for r in k1_rows + eval_rows if r["dtype"] == "float32"]
                             + [r["k1_max_abs_err"] for r in k2_rows if r["dtype"] == "float32"]),
-         "max_err_over_tol": max([r["max_abs_err"] / r["tol"] for r in k1_rows]
+         "max_err_over_tol": max([r["max_abs_err"] / r["tol"] for r in k1_rows + eval_rows]
                                  + [r["k1_max_abs_err"] / r["k1_tol"] for r in k2_rows]),
          "ms": k1["bfloat16"]["kernel_ms"], "plain_ms": k1["bfloat16"]["plain_ms"],
          "bound_ms": k1["bfloat16"]["bound_ms"], "bound_by": k1["bfloat16"]["bound_by"],
          "library_ms": None, "per": step, "traced_us_per_step": kinds.get("K1 fused_residual"),
-         "card": smi, "train": k1, "serve_per_forward": k1_serve,
+         "card": smi, "train": k1, "serve_per_forward": k1_serve, "eval_per_forward_f32": k1_eval_cli,
+         "eval_whole_utterance_extra_f32": k1_eval(evals["k1_whole_utterance"],
+                                                   "per eval forward of a whole 5.7 s utterance, an extra shape"),
          "configs": [{"C": r["C"], "T": r["T"], "B": r["B"], "dtype": r["dtype"], **r["config"]}
-                     for r in k1_rows if "kernel_ms" in r]
+                     for r in k1_rows + eval_rows if "kernel_ms" in r]
          + [{"C": r["C"], "T": r["T"], "B": r["B"], "dtype": r["dtype"], **r["k1_config"]}
             for r in k2_rows if "kernel_ms" in r]},
         {"name": "fused_residual_stack_backward", "route": "cuda",
          "source": "vibravox_tpu_torch/ops/csrc/fused_residual_bwd.cu",
          "replaces": "vibravox_tpu/ops/fused_residual.py:193",
-         "launches": train["launches"]["K2"], "launches_per_step": per_step["K2"],
+         "launches": main_path["K2"], "launches_by_path": by_path("K2"),
+         "launches_per_step": per_step["K2"],
          "max_abs_err": max(r["dx_err_over_scale"] for r in k2_rows if r["dtype"] == "float32"),
          "max_err_over_tol": max(k2_errs),
          "ms": k2["bfloat16"]["kernel_ms"], "plain_ms": k2["bfloat16"]["plain_ms"],
@@ -993,18 +1374,21 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
         {"name": "framed_dft_magnitude", "route": "cuda",
          "source": "vibravox_tpu_torch/ops/csrc/framed_dft.cu",
          "replaces": "vibravox_tpu/ops/pallas_stft.py:101",
-         "launches": train["launches"]["K3"], "launches_per_step": per_step["K3"],
-         "max_abs_err": max(r["k3_err_over_scale"] for r in dft_rows),
-         "max_err_over_tol": max(r["k3_err_over_scale"] / r["k3_tol"] for r in dft_rows),
+         "launches": main_path["K3"], "launches_by_path": by_path("K3"),
+         "launches_per_step": per_step["K3"],
+         "max_abs_err": max(r["k3_err_over_scale"] for r in dft_rows + evals["k3"]),
+         "max_err_over_tol": max(r["k3_err_over_scale"] / r["k3_tol"] for r in dft_rows + evals["k3"]),
          "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "per": "per train step: 3 resolutions x 2 signals, B 32, T 39904, float32",
          "traced_us_per_step": kinds.get("K3 framed_dft_magnitude"), "card": smi, "detail": k3,
+         "eval": k3_eval,
          "errors": "max_abs_err is the error over the largest magnitude"},
         {"name": "framed_dft_magnitude_backward", "route": "cuda",
          "source": "vibravox_tpu_torch/ops/csrc/framed_dft.cu",
          "replaces": "vibravox_tpu/ops/pallas_stft.py:178",
-         "launches": train["launches"]["K4"], "launches_per_step": per_step["K4"],
+         "launches": main_path["K4"], "launches_by_path": by_path("K4"),
+         "launches_per_step": per_step["K4"],
          "max_abs_err": max(r["k4_err_over_scale"] for r in dft_rows),
          "max_err_over_tol": max(r["k4_err_over_scale"] / r["k4_tol"] for r in dft_rows),
          "ms": k4["kernel_ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],

@@ -213,7 +213,8 @@ def test_trainer_fits_two_steps_on_synthetic_data():
     before = task.generator.last_conv.weight.detach().clone()
     dm = BWEDataModule(collate_strategy="constant_length-254-ms", batch_size=2, num_workers=0,
                        synthetic_size=4, device="cpu")
-    trainer = Trainer(max_epochs=1, log_every_n_steps=1, limit_train_batches=2, sync_every_step=True)
+    trainer = Trainer(max_epochs=1, log_every_n_steps=1, limit_train_batches=2, limit_val_batches=0,
+                      sync_every_step=True)
     trainer.fit(task, dm)
     assert trainer.global_step == 2 and trainer.state.step == 2 and len(trainer.step_seconds) == 2
     assert len(trainer.data_wait_seconds) == 2 and all(w >= 0 for w in trainer.data_wait_seconds)

@@ -106,3 +106,27 @@ def test_generator_keeps_float32_convolutions_out_of_tf32():
         assert conv.fp32_precision == "tf32"
     finally:
         conv.fp32_precision = caller
+
+
+def test_workflow_entry_points_without_gpu_raise(no_cuda, tmp_path):
+    """The CLI without ``++device=cpu`` and a checkpoint restore given no
+    device use the GPU, and raise for want of one; so do the trainer's fit
+    and test of a task on the GPU."""
+    from vibravox_tpu_torch.core.checkpoint import CheckpointManager
+    from vibravox_tpu_torch.core.loop import Trainer
+    from vibravox_tpu_torch.data.bwe import BWEDataModule
+    from vibravox_tpu_torch.run import main
+
+    run_dir = tmp_path / "run"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["lightning_datamodule=bwe", "lightning_module=eben", "callbacks=bwe_checkpoint",
+              "logging=csv", "lightning_datamodule.dataset_name_principal=synthetic",
+              "~lightning_datamodule.data_augmentation", f"++run_dir={run_dir}"])
+    assert not run_dir.exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CheckpointManager(str(tmp_path / "ckpt")).restore(object(), "last")
+    task = type("GpuTask", (), {"device": torch.device("cuda")})()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer().test(task, BWEDataModule(synthetic_size=1, num_workers=0, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer().fit(task, BWEDataModule(synthetic_size=1, num_workers=0, device="cpu"))

@@ -6,15 +6,17 @@ crops every utterance to a fixed length (at a random offset in training,
 centred when ``deterministic``) and pads shorter ones symmetrically.  The
 ``pad`` strategy is not ported yet.  Crop offsets are drawn from a numpy
 generator seeded with ``seed``, in sample order, as the JAX package draws
-them, so the same items give byte-equal batches.  In a ``DataLoader``
-worker the generator is reseeded from ``(seed, the worker's torch seed)``,
-so workers do not repeat each other's offsets.
+them, so the same items give byte-equal batches.  ``keyed`` draws a batch's
+offsets from a generator of its own, keyed to ``(seed, epoch, batch)``: the
+data module's loader uses it, so a batch's crops depend neither on the
+worker process that makes it nor on the batches made before it, and a run
+resumed at an epoch sees the crops an uninterrupted run sees there.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,16 +58,17 @@ class BWECollate:
         self.deterministic = deterministic
         self.seed = seed
         self.rng = np.random.default_rng(seed)
-        self._worker_seed: Optional[int] = None
 
-    def _reseed_in_worker(self) -> None:
-        info = torch.utils.data.get_worker_info()
-        if info is not None and info.seed != self._worker_seed:
-            self._worker_seed = info.seed
-            self.rng = np.random.default_rng([self.seed, info.seed])
+    def keyed(self, samples: Sequence[Dict[str, np.ndarray]], key: Tuple[int, int]
+              ) -> Dict[str, torch.Tensor]:
+        """The batch of ``samples`` with its crop offsets drawn from
+        ``default_rng((seed, *key))``, ``key`` being ``(epoch, batch)``."""
+        return self._collate(samples, np.random.default_rng((self.seed, *key)))
 
     def __call__(self, samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
-        self._reseed_in_worker()
+        return self._collate(samples, self.rng)
+
+    def _collate(self, samples, rng: np.random.Generator) -> Dict[str, torch.Tensor]:
         has_reference = "audio_airborne" in samples[0]
         bodies = [np.asarray(s["audio_body_conducted"], dtype=np.float32).reshape(-1) for s in samples]
         airs = (
@@ -74,7 +77,7 @@ class BWECollate:
         )
         target = self.constant_samples
         offsets = [
-            (((t - target) // 2) if self.deterministic else int(self.rng.integers(0, t - target + 1)))
+            (((t - target) // 2) if self.deterministic else int(rng.integers(0, t - target + 1)))
             if (t := b.shape[-1]) >= target else 0
             for b in bodies
         ]

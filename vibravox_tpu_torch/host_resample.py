@@ -1,10 +1,9 @@
 """Host-side polyphase resampler (numpy) for requests at other sample rates.
 
 This package's own copy of the JAX package's numpy twin
-(``vibravox_tpu/native/pipeline.py::_resample_poly_numpy`` and the kernel
-bank of ``ops/resample.py::_design_kernel``): torchaudio's
-``sinc_interp_kaiser`` design, applied per output window as one matrix
-product over all phases.
+(``vibravox_tpu/native/pipeline.py::_resample_poly_numpy``): torchaudio's
+``sinc_interp_kaiser`` design (``ops/resample.py::design_kernel``), applied
+per output window as one matrix product over all phases.
 """
 
 from __future__ import annotations
@@ -15,30 +14,18 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["host_resample"]
+from vibravox_tpu_torch.ops.resample import design_kernel
 
-_KAISER_BETA = 14.769656459379492  # torchaudio's sinc_interp_kaiser default
-_LOWPASS_FILTER_WIDTH = 6
-_ROLLOFF = 0.99
+__all__ = ["host_resample"]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_bank(orig_freq: int, new_freq: int) -> Tuple[np.ndarray, int, int, int]:
     """(kernels (phases, width_total) f32, left_pad, orig_g, new_g)."""
-    from scipy.special import i0
-
     gcd = math.gcd(int(orig_freq), int(new_freq))
     orig_g, new_g = int(orig_freq) // gcd, int(new_freq) // gcd
-    base_freq = min(orig_g, new_g) * _ROLLOFF
-    width = int(math.ceil(_LOWPASS_FILTER_WIDTH * orig_g / base_freq))
-    idx = np.arange(-width, width + orig_g, dtype=np.float64) / orig_g
-    t = np.arange(0, -new_g, -1, dtype=np.float64)[:, None] / new_g + idx[None, :]
-    t = np.clip(t * base_freq, -_LOWPASS_FILTER_WIDTH, _LOWPASS_FILTER_WIDTH)
-    win = i0(_KAISER_BETA * np.sqrt(1 - (t / _LOWPASS_FILTER_WIDTH) ** 2)) / i0(_KAISER_BETA)
-    t = t * np.pi
-    scale = base_freq / orig_g
-    kernels = np.where(t == 0, 1.0, np.sin(t) / np.where(t == 0, 1.0, t)) * win * scale
-    return np.ascontiguousarray(kernels.astype(np.float32)), width, orig_g, new_g
+    kernels, width = design_kernel(orig_g, new_g)
+    return kernels, width, orig_g, new_g
 
 
 def host_resample(x: np.ndarray, orig_freq: int, new_freq: int) -> np.ndarray:

@@ -25,18 +25,27 @@ float32 and the whole step keeps cuDNN's float32 convolutions in IEEE
 float32 (``strict_float32``), backward included.  On the GPU every fused
 residual stack runs K1 forward and K2 backward, every STFT magnitude K3
 forward and K4 backward.
+
+``eval_step`` is the JAX ``eval_step`` (the reference's
+``common_eval_step``): the generator's float32 forward without gradients,
+both networks' atomic losses against the reference, and the outputs that
+``eval_metrics`` (``SEMetrics``: SI-SDR and STOI at 16 kHz) reads.  On the
+GPU it runs K1 (six calls a forward) and K3 (the STFT loss), no K2 or K4.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch import nn
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
+from vibravox_tpu_torch.tasks.se_metrics import SEMetrics
 
 __all__ = ["EBENTask", "EBENTrainState"]
 
@@ -45,22 +54,83 @@ Embeddings = List[List[torch.Tensor]]
 
 @dataclasses.dataclass
 class EBENTrainState:
-    """What changes from step to step besides the networks' parameters."""
+    """Everything a step changes: the two networks (the task's own modules),
+    their optimizers, the EMA norms, the step and the gate's stream.
+    ``state_dict`` / ``load_state_dict`` carry all of it, for checkpoints."""
 
+    generator: nn.Module = dataclasses.field(repr=False)
+    discriminator: nn.Module = dataclasses.field(repr=False)
     step: int
     generator_optimizer: torch.optim.Optimizer
     discriminator_optimizer: torch.optim.Optimizer
     atomic_norms_ema: torch.Tensor  # (n_atomic_losses,) float32, on the task's device
     gate: torch.Generator  # CPU stream of the discriminator's Bernoulli gate
 
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "step": self.step,
+            "generator": self.generator.state_dict(),
+            "discriminator": self.discriminator.state_dict(),
+            "generator_optimizer": self.generator_optimizer.state_dict(),
+            "discriminator_optimizer": self.discriminator_optimizer.state_dict(),
+            "atomic_norms_ema": self.atomic_norms_ema,
+            "gate": self.gate.get_state(),
+        }
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Loads in place: the networks' parameters keep their identity, so
+        the optimizers go on updating them."""
+        self.generator.load_state_dict(sd["generator"], strict=True)
+        self.discriminator.load_state_dict(sd["discriminator"], strict=True)
+        for optimizer, key in ((self.generator_optimizer, "generator_optimizer"),
+                               (self.discriminator_optimizer, "discriminator_optimizer")):
+            optimizer.load_state_dict(sd[key])
+            _step_counts_to_cpu(optimizer)
+        self.step = int(sd["step"])
+        self.atomic_norms_ema = sd["atomic_norms_ema"].to(self.atomic_norms_ema.device, torch.float32)
+        self.gate.set_state(sd["gate"].cpu())
+
+
+def _step_counts_to_cpu(optimizer: torch.optim.Optimizer) -> None:
+    """Puts the step counts of a loaded optimizer back on the CPU where it
+    keeps them (neither capturable nor fused).  ``load_state_dict`` leaves
+    them where the checkpoint was mapped, and a step count on the GPU costs
+    Adam two host syncs per parameter tensor per step."""
+    for group in optimizer.param_groups:
+        if group.get("capturable") or group.get("fused"):
+            continue
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if isinstance(state.get("step"), torch.Tensor):
+                state["step"] = state["step"].cpu()
+
+
+def _materialise(opt: Callable) -> Callable[..., torch.optim.Optimizer]:
+    """A config's ``_partial_`` optimizer (``partial(adam, lr=...)``) called
+    once, as the JAX task does, into a factory over parameters; a factory
+    (a partial of a ``torch.optim.Optimizer`` class) is kept."""
+    if isinstance(opt, functools.partial) and not (
+            isinstance(opt.func, type) and issubclass(opt.func, torch.optim.Optimizer)):
+        return opt()
+    return opt
+
+
+def _grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Global L2 norm of the gradients (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in params if g is not None]))
+
 
 @dataclasses.dataclass
 class EBENTask:
-    """Networks, losses, optimizer factories and the train step, with the
-    constructor surface of the JAX ``EBENTask``.
+    """Networks, losses, optimizer factories and the train and eval steps,
+    with the constructor surface of the JAX ``EBENTask``.
 
     ``device``: ``None`` for the GPU (raises without one), or ``"cpu"``; the
-    networks are moved there."""
+    networks are moved there.  ``track_grad_norm=2`` logs each network's
+    global gradient norm (``train/*/grad_2.0_norm_total``).  Not ported yet,
+    and refused: ``push_to_hub_after_testing`` (it needs the network) and
+    ``accumulate_grad_batches`` other than 1."""
 
     sample_rate: int
     generator: EBENGenerator
@@ -74,6 +144,11 @@ class EBENTask:
     dynamic_loss_balancing: Optional[str] = None  # None | "simple" | "ema"
     beta_ema: float = 0.9
     update_discriminator_ratio: float = 1.0
+    description: Optional[str] = None
+    push_to_hub_after_testing: bool = False
+    hub_repo_id: Optional[str] = None
+    accumulate_grad_batches: int = 1
+    track_grad_norm: int = -1
     compute_dtype: Optional[str] = None
     device: DeviceLike = None
 
@@ -82,9 +157,28 @@ class EBENTask:
             raise ValueError(f"unknown dynamic_loss_balancing {self.dynamic_loss_balancing!r}")
         if not 0 <= self.update_discriminator_ratio <= 1:
             raise ValueError("update_discriminator_ratio must be in [0, 1]")
+        if self.track_grad_norm not in (-1, 2):
+            raise ValueError(f"track_grad_norm must be -1 or 2, got {self.track_grad_norm!r}")
+        if self.push_to_hub_after_testing:
+            raise NotImplementedError("pushing to the hub needs the network and is not ported")
+        if self.accumulate_grad_batches != 1:
+            raise NotImplementedError(
+                "gradient accumulation is not ported yet: accumulate_grad_batches must be 1")
+        self.generator_optimizer = _materialise(self.generator_optimizer)
+        self.discriminator_optimizer = _materialise(self.discriminator_optimizer)
         self.device = resolve_device(self.device)
         self.generator.to(self.device)
         self.discriminator.to(self.device)
+        self._se_metrics = SEMetrics(self.sample_rate)
+
+    def eval_metrics(self, outputs: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """SE metrics at 16 kHz (ref ``base_se.py:67-106``)."""
+        return self._se_metrics(outputs)
+
+    def on_test_end(self, state: EBENTrainState) -> None:
+        """The reference exports the generator to the hub here; the port
+        refuses ``push_to_hub_after_testing`` at construction, so a test
+        pass ends with nothing to export."""
 
     @property
     def atomic_loss_names(self) -> Tuple[str, ...]:
@@ -111,6 +205,8 @@ class EBENTask:
             step = int(restored["step"])
             ema = restored["atomic_norms_ema"].to(torch.float32)
         return EBENTrainState(
+            generator=self.generator,
+            discriminator=self.discriminator,
             step=step,
             generator_optimizer=self.generator_optimizer(self.generator.parameters()),
             discriminator_optimizer=self.discriminator_optimizer(self.discriminator.parameters()),
@@ -211,11 +307,15 @@ class EBENTask:
         for k, v in atomic.items():
             logs[f"train/generator/{k}"] = v.detach()
         logs["train/generator/backprop_loss"] = total.detach()
+        if self.track_grad_norm == 2:
+            logs["train/generator/grad_2.0_norm_total"] = _grad_norm(
+                p.grad for p in gen.parameters())
 
         # ---- discriminator: Bernoulli-gated hinge step ----
         if self.adversarial_loss_fn is not None:
             gate_open = bool(torch.rand((), generator=state.gate) < self.update_discriminator_ratio)
-            with torch.set_grad_enabled(gate_open):
+            track = self.track_grad_norm == 2
+            with torch.set_grad_enabled(gate_open or track):
                 reference_emb, enhanced_emb = self._discriminator_embeddings(
                     enhanced, reference, decomposed, decomposed_reference)
                 real = self.adversarial_loss_fn(reference_emb, 1).float()
@@ -225,10 +325,50 @@ class EBENTask:
                 state.discriminator_optimizer.zero_grad(set_to_none=True)
                 disc_total.backward()
                 state.discriminator_optimizer.step()
+                grads = [p.grad for p in self.discriminator.parameters()]
+            elif track:  # the JAX step logs the norm of the gradient it gated away
+                grads = torch.autograd.grad(disc_total, list(self.discriminator.parameters()),
+                                            allow_unused=True)
             logs["train/discriminator/real_loss"] = real.detach()
             logs["train/discriminator/fake_loss"] = fake.detach()
             logs["train/discriminator/backprop_loss"] = disc_total.detach()
+            if track:
+                logs["train/discriminator/grad_2.0_norm_total"] = _grad_norm(grads)
 
         state.step += 1
         state.atomic_norms_ema = norms_ema
         return state, logs
+
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def eval_step(self, state: EBENTrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """The generator's float32 forward and both networks' losses on a
+        ``(B, T, 1)`` batch.  Returns ``corrupted``, ``enhanced`` and, with
+        an ``audio_airborne`` reference, ``reference`` (``(B, T, 1)`` tensors
+        on the task's device), and ``logs`` (``generator/*`` and
+        ``discriminator/*`` 0-dim tensors, the JAX step's keys)."""
+        with strict_float32():
+            return self._eval_step(batch)
+
+    def _eval_step(self, batch):
+        gen = self.generator
+        corrupted = gen.cut_to_valid_length(batch["audio_body_conducted"].to(self.device))
+        enhanced, decomposed = gen.tail(*gen.front(corrupted.transpose(1, 2).contiguous()))
+        outputs: Dict[str, Any] = {"corrupted": corrupted, "enhanced": enhanced.transpose(1, 2)}
+        logs: Dict[str, torch.Tensor] = {}
+        if "audio_airborne" in batch:
+            reference = gen.cut_to_valid_length(batch["audio_airborne"].to(self.device))
+            outputs["reference"] = reference
+            reference = reference.transpose(1, 2).contiguous()
+            decomposed_reference = gen.pqmf.analysis(reference)
+            atomic = self._generator_atomic_losses(enhanced, reference, decomposed, decomposed_reference)
+            for k, v in atomic.items():
+                logs[f"generator/{k}"] = v
+            if self.adversarial_loss_fn is not None:
+                reference_emb, enhanced_emb = self._discriminator_embeddings(
+                    enhanced, reference, decomposed, decomposed_reference)
+                logs["discriminator/real_loss"] = self.adversarial_loss_fn(reference_emb, 1).float()
+                logs["discriminator/fake_loss"] = self.adversarial_loss_fn(enhanced_emb, -1).float()
+        outputs["logs"] = logs
+        return outputs
