@@ -34,18 +34,26 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
    a CUDA-only trace of one call;
 8. k3_k4_parity: the framed-DFT magnitude (K3) and its backward (K4)
    against ``torch.stft`` and its autograd at B = 32, T = 39904, the three
-   loss resolutions, and at a ragged T, B = 1, T just above fft / 2 and
-   hops below 32; K4 bit-equal over two runs; kernel, plain, library and
-   bound times of whole wrapper calls, in turns;
-9. train_parity: one seeded float32 train step at small sizes on the card
-   (K1-K4) against the same step on the CPU (the plain versions);
-10. train: the training path.  ``Trainer.fit`` of the full ``eben.yaml``
+   loss resolutions, and at a ragged T, B = 1, T just above fft / 2, hops
+   below 32, and T <= fft / 2 (T = 900 at fft 2048, T = 300 at fft 1024),
+   where the reflect pad reflects more than once; K4 bit-equal over two
+   runs; kernel, plain, library and bound times of whole wrapper calls, in
+   turns;
+9. pad_short: the ``pad`` collate on 32 utterances under 1024 samples
+   (T = 1024, 992 after the generator's cut) through the full task's
+   generator and its STFT loss, forward and backward, on the card against
+   the CPU: K1, K2, K3, K4 launched, the 2048-point resolution at
+   T <= fft / 2 (the discriminator needs about 3000 samples, so the whole
+   train step does not take such a batch);
+10. train_parity: one seeded float32 train step at small sizes on the card
+    (K1-K4) against the same step on the CPU (the plain versions);
+11. train: the training path.  ``Trainer.fit`` of the full ``eben.yaml``
     task at batch 32 on 2.5 s synthetic crops, bfloat16; the counts are
     reset after a warm-up fit and must equal 6 launches per step for each
     of K1-K4 over the timed fit;
-11. train_profile: the untraced train-step wall, its device time by kernel
+12. train_profile: the untraced train-step wall, its device time by kernel
     kind from a CUDA-only trace, and the idle share;
-12. eval_parity: the full task's float32 eval step on the first batch of
+13. eval_parity: the full task's float32 eval step on the first batch of
     the CLI's test loader (batch 1, a centred 2.5 s crop) and, as an extra
     shape, on one whole 5.7 s synthetic test utterance, on the card
     against the CPU (logs 1e-4 relative, enhanced audio 1e-4 of scale), K1
@@ -53,18 +61,43 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     plain versions at the shapes the CLI batch's forward ran, and K1 at the
     whole utterance's (T no multiple of K1's tile), with times and K1's
     launch configuration (``eval_k1`` and ``eval_k3`` lines);
-13. cli: this slice's main path.  ``vibravox_tpu_torch.run.main`` with
+14. augment: on the host, at one torch thread as in a loader worker, the
+    augmentation's worst case for one batch of 32 x 40000 samples and its
+    airborne pair: every transform fires, at the slowest pitch step and
+    speed factor (each step and factor timed once first), and the peak host
+    memory of designing every resampler bank of ``light`` / ``aggressive``
+    at 16 kHz with the bytes each keeps; then the resampler's dense and
+    banded forms side by side (``resample_forms``): on the host at the
+    speed factors, STOI's 16 -> 10 kHz and pitch step -3, on the card at
+    48 -> 16 kHz, agreeing within 1e-6 of scale;
+15. loader: the published train loaders (``bwe`` with ``light``,
+    ``noisybwe`` with ``aggressive``, four workers) as the CLI composes
+    them, over 32 batches of the synthetic source: the batches a second
+    in steady state against the train phase's step, and 16 batches split
+    into the source's items and the collate with its augmentation;
+16. npz: the synthetic source written to a temporary directory of npz
+    utterances; the data module over it (``light`` augmentation, two
+    workers) gives the synthetic source's train, validation and test
+    batches byte for byte;
+17. cli: this slice's main path.  ``vibravox_tpu_torch.run.main`` with
     ``lightning_datamodule=bwe lightning_module=eben callbacks=bwe_checkpoint
-    logging=csv``, the synthetic source (64 utterances) without
-    augmentation, two epochs, four validation and four test batches, in a
-    temporary run_dir: the K1-K4 launches of fit and of test("last") are
-    asserted (test: K1 and K3 only), with the fit's wall, the test's seconds
-    per batch (the eval step on the card, the host metrics, STOI) and the
-    test metrics; ``last``, ``index.json`` and the top-2 checkpoints must
-    exist; a second run with ``max_epochs=3`` must resume at epoch 2, its
-    Adam step counts on the CPU, its train steps timed against the first
-    run's;
-14. the ``kernels`` line (all four kernels), then the result line.
+    logging=csv``, the synthetic source (64 utterances) with the published
+    ``light`` augmentation, two epochs, four validation and four test
+    batches, in a temporary run_dir: the K1-K4 launches of fit and of
+    test("last") are asserted (test: K1 and K3 only), with the fit's wall,
+    each step's data wait against its time, the test's seconds per batch
+    (the eval step on the card, the host metrics, STOI) and the test
+    metrics; ``last``, ``index.json`` and the top-2 checkpoints must exist;
+    a second run with ``max_epochs=3`` must resume at epoch 2, its Adam
+    step counts on the CPU, its train steps timed against the first run's;
+18. cli_noisybwe: ``run.main`` with ``lightning_datamodule=noisybwe
+    lightning_module=eben callbacks=bwe_checkpoint logging=csv`` on the
+    synthetic source (64 utterances) with its published ``aggressive``
+    augmentation, fit two epochs then test("last"), four batches of each
+    of the ``synthetic`` and ``real`` loaders: K1-K4 launches asserted, the
+    real loader's batches reference-free (no airborne key, no losses, no
+    metrics), each step's data wait against its time;
+19. the ``kernels`` line (all four kernels), then the result line.
 
 Phases 3 and 7 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
@@ -80,7 +113,9 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import tracemalloc
 from pathlib import Path
 
 import numpy as np
@@ -89,12 +124,14 @@ import torch
 from vibravox_tpu_torch.core.loop import Trainer
 from vibravox_tpu_torch.core.optim import adam, sgd
 from vibravox_tpu_torch.data.bwe import BWEDataModule
+from vibravox_tpu_torch.data.collate import BWECollate
 from vibravox_tpu_torch.data.sources import SyntheticVibravoxSource
 from vibravox_tpu_torch.device import strict_float32
 from vibravox_tpu_torch.losses.gan import FeatureMatchingLoss, HingeLoss
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
 from vibravox_tpu_torch.ops import _build
+from vibravox_tpu_torch.ops import augment
 from vibravox_tpu_torch.ops.fused_residual import (
     plain_residual_stack,
     plain_residual_stack_backward,
@@ -109,6 +146,8 @@ from vibravox_tpu_torch.ops.pallas_stft import (
     plain_framed_dft_backward,
     plain_framed_dft_magnitude,
 )
+from vibravox_tpu_torch.ops import resample
+from vibravox_tpu_torch.ops.resample import KaiserResampler, bank_nbytes, design_band, design_kernel
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.serving import EnhanceServer
 from vibravox_tpu_torch.tasks.eben import EBENTask
@@ -578,11 +617,13 @@ def dft_bound_ms(b: int, t: int, fft: int, hop: int, win: int, backward: bool):
 
 # (B, T, fft, hop, win, silence) held against the plain versions besides the
 # train step's shapes: a ragged T, B = 1, T just above fft / 2, hops below 32,
-# and near silence (x scaled by 1e-7) over `silence` samples from T / 3,
-# longer than the window, so whole frames clamp at eps and K4's gom is 0 there
+# near silence (x scaled by 1e-7) over `silence` samples from T / 3, longer
+# than the window, so whole frames clamp at eps and K4's gom is 0 there, and
+# T <= fft / 2, where the reflect pad reflects more than once
 K3_K4_EXTRA = ((3, 4001, 512, 50, 240, 0), (1, 7777, 1024, 120, 600, 0), (2, 1025, 2048, 240, 1200, 0),
                (2, 3000, 512, 16, 240, 0), (1, 700, 256, 1, 200, 0), (2, 12000, 512, 50, 240, 2048),
-               (2, 12000, 2048, 240, 1200, 4800), (2, 6000, 256, 16, 200, 1024))
+               (2, 12000, 2048, 240, 1200, 4800), (2, 6000, 256, 16, 200, 1024),
+               (2, 900, 2048, 240, 1200, 0), (2, 300, 1024, 120, 600, 0))
 
 
 def check_k3_k4(x, g, fft, hop, win, row) -> torch.Tensor:
@@ -899,7 +940,7 @@ def phase_train_profile() -> dict:
 EVAL_UTTERANCE = 6
 CLI_ARGS = ("lightning_datamodule=bwe", "lightning_module=eben", "callbacks=bwe_checkpoint",
             "logging=csv", "lightning_datamodule.dataset_name_principal=synthetic",
-            "~lightning_datamodule.data_augmentation", "++lightning_datamodule.synthetic_size=64",
+            "++lightning_datamodule.synthetic_size=64",
             "++trainer.limit_val_batches=4", "++trainer.limit_test_batches=4")
 CLI_STEPS_PER_EPOCH, CLI_VAL_BATCHES, CLI_TEST_BATCHES = 2, 4, 4  # 64 utterances at batch 32
 
@@ -1069,6 +1110,17 @@ def phase_eval_parity() -> dict:
     return out
 
 
+def wait_against_step(steps: dict) -> dict:
+    """Each train step's data wait (the host's wait for its batch,
+    ``Trainer.data_wait_seconds``) against its time by CUDA events; the
+    first batch's wait holds the loader's start and is kept apart."""
+    wait, step = steps["data_wait_ms"], steps["train_step_ms"]
+    later = [w / s for w, s in zip(wait[1:], step[1:])]
+    return {"first_wait_ms": wait[0], "later_wait_ms_median": float(np.median(wait[1:])),
+            "later_step_ms_median": float(np.median(step[1:])),
+            "later_wait_over_step_max": max(later), "later_wait_over_step_median": float(np.median(later))}
+
+
 def phase_cli() -> dict:
     """The CLI's main path: ``vibravox_tpu_torch.run.main`` with CLI_ARGS,
     at full width, in a temporary run_dir (fit two epochs of two steps at
@@ -1094,6 +1146,11 @@ def phase_cli() -> dict:
     train_steps = {"events": [], "adam_step_devices": set()}
     train_step, eval_step, eval_metrics, stoi, test = (
         EBENTask.train_step, EBENTask.eval_step, EBENTask.eval_metrics, se_metrics.stoi, Trainer.test)
+    fit = Trainer.fit
+
+    def kept_fit(self, *args, **kwargs):
+        marks["trainer"] = self
+        return fit(self, *args, **kwargs)
 
     def timed_train_step(self, state, batch):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1144,6 +1201,7 @@ def phase_cli() -> dict:
         counts = read_counts()
         fit = marks["fit_counts"]
         steps = {"train_step_ms": [a.elapsed_time(b) for a, b in train_steps["events"]],
+                 "data_wait_ms": [1e3 * w for w in marks["trainer"].data_wait_seconds],
                  "adam_step_devices": sorted(train_steps["adam_step_devices"])}
         return metrics, {"fit": fit, "test": {k: counts[k] - fit[k] for k in counts}}, \
             marks["fit_end"] - t0, marks["test_end"] - marks["fit_end"], steps
@@ -1155,7 +1213,7 @@ def phase_cli() -> dict:
 
     EBENTask.train_step, EBENTask.eval_step = timed_train_step, timed_eval_step
     EBENTask.eval_metrics = timed(eval_metrics, "metrics")
-    se_metrics.stoi, Trainer.test = timed(stoi, "stoi"), marked_test
+    se_metrics.stoi, Trainer.test, Trainer.fit = timed(stoi, "stoi"), marked_test, kept_fit
     try:
         with tempfile.TemporaryDirectory(prefix="vibravox_cli_") as run_dir:
             metrics, launches, fit_s, test_s, steps = run_cli(run_dir, 2)
@@ -1169,13 +1227,14 @@ def phase_cli() -> dict:
             progress2 = json.loads((ckpt / "trainer_state.json").read_text())
     finally:
         EBENTask.train_step, EBENTask.eval_step, EBENTask.eval_metrics = train_step, eval_step, eval_metrics
-        se_metrics.stoi, Trainer.test = stoi, test
+        se_metrics.stoi, Trainer.test, Trainer.fit = stoi, test, fit
 
     per_batch = {k: [1e3 * x for x in v] for k, v in test_timing.items()}
     fit_out = {"phase": "cli_fit", "epochs": 2, "steps": 2 * CLI_STEPS_PER_EPOCH, "B": 32,
-               "val_batches_per_epoch": CLI_VAL_BATCHES, "fit_wall_s": fit_s,
+               "val_batches_per_epoch": CLI_VAL_BATCHES, "fit_wall_s": fit_s, "augmentation": "light",
                "launches": launches["fit"], "checkpoints": top_k, "index": index,
-               "trainer_state": progress, "last": have_last, **steps}
+               "trainer_state": progress, "last": have_last, **steps,
+               "data_wait_against_step": wait_against_step(steps)}
     test_out = {"phase": "cli_test", "batches": CLI_TEST_BATCHES, "test_wall_s": test_s,
                 "test_s_per_batch": test_s / CLI_TEST_BATCHES,
                 "eval_step_wall_ms": per_batch["eval_step_wall"],
@@ -1189,6 +1248,7 @@ def phase_cli() -> dict:
     first, resumed = by_position(steps["train_step_ms"]), by_position(steps2["train_step_ms"])
     resume_out = {"phase": "cli_resume", "epochs": 3, "fit_wall_s": fit2_s, "test_wall_s": test2_s,
                   "launches": launches2, "trainer_state": progress2, "metrics": metrics2, **steps2,
+                  "data_wait_against_step": wait_against_step(steps2),
                   "train_steps": resumed, "first_run_train_steps": first,
                   "later_steps_resumed_over_first": resumed["later_steps_median_ms"]
                   / first["later_steps_median_ms"]}
@@ -1216,6 +1276,416 @@ def phase_cli() -> dict:
     return {"fit": fit_out, "test": test_out, "resume": resume_out}
 
 
+# ---------------------------------------------------------------------------
+# the BWE family's host pipeline: the pad collate, augmentation, npz sources
+# ---------------------------------------------------------------------------
+
+PAD_SHORT_B = 32
+LIGHT = dict(p_data_augmentation=0.5, p_speed_perturbation=0.3, p_pitch_shift=0.3, p_time_masking=0.3)
+PITCH_STEPS = (-4, -3, -2, -1, 1, 2, 3, 4, 5, 6)  # light.yaml / aggressive.yaml
+SPEED_FACTORS = (0.7, 0.8, 0.85, 0.9, 0.95, 1.05, 1.1, 1.15, 1.2, 1.3)
+
+
+def phase_pad_short() -> dict:
+    """The pad collate's short batches on the card: 32 synthetic utterances
+    of 0.03-0.06 s collate to T = 1024 (992 after the generator's cut);
+    the full task's generator forward and STFT loss, then its backward, on
+    the card against the same weights on the CPU (loss 1e-4 relative; each
+    parameter's gradient within 1e-2 of its norm, as train_parity holds the
+    updates).  The 2048-point resolution runs K3 and K4 at T <= fft / 2.
+    The discriminator is left out: its deepest scales need about 3000
+    samples, so the whole train step takes no such batch."""
+    source = SyntheticVibravoxSource(PAD_SHORT_B, min_seconds=0.03, max_seconds=0.06, split="speech_clean-train")
+    batch = BWECollate(16000, "pad")([source[i] for i in range(PAD_SHORT_B)])
+    torch.manual_seed(0)
+    cpu = make_task("cpu", small=False, optimizer=sgd(1e-2))
+    gpu = make_task("cuda", small=False, optimizer=sgd(1e-2))
+    gpu.generator.load_state_dict(cpu.generator.state_dict(), strict=True)
+
+    def step(task):
+        gen = task.generator
+        corrupted = gen.cut_to_valid_length(batch["audio_body_conducted"].to(task.device))
+        reference = gen.cut_to_valid_length(batch["audio_airborne"].to(task.device))
+        enhanced, _ = gen(corrupted)
+        loss = task.reconstructive_loss_freq_fn(enhanced, reference)
+        loss.backward()
+        return float(loss.detach()), {n: q.grad.detach().cpu() for n, q in gen.named_parameters() if q.grad is not None}
+
+    loss_cpu, grads_cpu = step(cpu)
+    out = {}
+    reset_counts()
+    _, dfts = record_shapes(lambda: out.update(zip(("loss", "grads"), step(gpu))))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    loss_err = abs(out["loss"] - loss_cpu) / abs(loss_cpu)
+    worst, bad = 0.0, []
+    for n, g in grads_cpu.items():
+        diff = (out["grads"][n] - g).norm().item()
+        worst = max(worst, diff / max(g.norm().item(), 1e-30))
+        if diff > 1e-2 * g.norm().item() + 1e-7:
+            bad.append(n)
+    short = [d for d in dfts if d[1] <= d[2] // 2]
+    row = {"phase": "pad_short", "B": PAD_SHORT_B, "T_batch": int(batch["audio_body_conducted"].shape[1]),
+           "lengths": [len(source[i]["audio_body_conducted"]) for i in range(PAD_SHORT_B)],
+           "dft_shapes": dfts, "dft_shapes_t_le_half_fft": short, "launches": counts,
+           "loss_rel_err": loss_err, "loss_tol": 1e-4, "grads_max_diff_over_norm": worst, "grads_tol": 1e-2,
+           "grads_out_of_tol": bad, "grads_compared": len(grads_cpu)}
+    emit(row)
+    if not (row["T_batch"] == 1024 and max(row["lengths"]) < 1024 and short):
+        raise AssertionError(f"the pad collate's batch did not reach T <= fft / 2: {row}")
+    if counts != {"K1": 6, "K2": 6, "K3": 6, "K4": 3}:
+        raise AssertionError(f"unexpected kernel launches on the pad-collated batch: {counts}")
+    if not (loss_err <= 1e-4 and not bad and len(out["grads"]) == len(grads_cpu)):
+        raise AssertionError(f"the pad-collated batch's loss or gradients on the card differ from the CPU's: {row}")
+    return row
+
+
+def resampler_form(orig: int, new: int, window: str, banded: bool) -> KaiserResampler:
+    """A resampler forced to the banded or the dense form, whatever the
+    size of its dense bank."""
+    limit = resample.DENSE_BANK_LIMIT
+    resample.DENSE_BANK_LIMIT = 0 if banded else 1 << 62
+    try:
+        return KaiserResampler(orig, new, window=window)
+    finally:
+        resample.DENSE_BANK_LIMIT = limit
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """The best of ``reps`` wall times after one warm-up call (ms)."""
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best
+
+
+def resample_forms(body: torch.Tensor) -> dict:
+    """The two forms of ``KaiserResampler`` on the same input, with the
+    form that ``DENSE_BANK_LIMIT`` picks: on the host at the speed factors
+    (the batch of 32 x 40000), at STOI's 16 kHz -> 10 kHz (one 2.5 s
+    signal) and at pitch step -3 (the smallest dense pitch bank, 216 MB:
+    one call each, its design timed apart); on the card at 48 kHz -> 16 kHz
+    with the Hann window (the SE metrics' resample at 48 kHz, one 2.5 s
+    signal).  The forms must agree within 1e-6 of scale."""
+    cases = [(f"speed {f}", int(round(16000 * f)), 16000, "kaiser", body, 3) for f in SPEED_FACTORS]
+    cases += [("stoi 16000->10000", 16000, 10000, "kaiser", body[:1], 3),
+              ("pitch -3", int(16000 / 2.0 ** (3 / 12)), 16000, "kaiser", body, 0)]
+    out = {}
+    for label, orig, new, window, x, reps in cases:
+        row = {"orig_freq": orig, "new_freq": new, "B": int(x.shape[0]), "T": int(x.shape[-1]),
+               "dense_bank_bytes": bank_nbytes(*(v // math.gcd(orig, new) for v in (orig, new)))[0]}
+        ys = {}
+        for form in ("dense", "band"):
+            t0 = time.perf_counter()
+            r = resampler_form(orig, new, window, banded=form == "band")
+            row[f"{form}_design_s"] = time.perf_counter() - t0
+            if reps:
+                row[f"{form}_ms"] = host_ms(lambda: r(x), reps)
+            else:
+                t0 = time.perf_counter()
+                r(x)
+                row[f"{form}_ms"] = 1e3 * (time.perf_counter() - t0)
+            ys[form] = r(x)
+            del r
+        design_band.cache_clear()
+        design_kernel.cache_clear()
+        row["picked"] = "band" if KaiserResampler(orig, new, window=window).banded else "dense"
+        row["band_over_dense"] = row["band_ms"] / row["dense_ms"]
+        row["max_abs_diff_over_scale"] = rel_err(ys["band"], ys["dense"])
+        out[label] = row
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 120000)).astype(np.float32)).cuda()
+    row = {"orig_freq": 48000, "new_freq": 16000, "B": 1, "T": 120000, "device": "cuda"}
+    ys = {}
+    for form in ("dense", "band"):
+        r = resampler_form(48000, 16000, "hann", banded=form == "band")
+        row[f"{form}_ms"] = cuda_ms(lambda: r(x))
+        ys[form] = r(x).cpu()
+    row["picked"] = "band" if KaiserResampler(48000, 16000, window="hann").banded else "dense"
+    row["band_over_dense"] = row["band_ms"] / row["dense_ms"]
+    row["max_abs_diff_over_scale"] = rel_err(ys["band"], ys["dense"])
+    out["card 48000->16000 hann"] = row
+    bad = {k: v for k, v in out.items() if not v["max_abs_diff_over_scale"] <= 1e-6}
+    if bad:
+        raise AssertionError(f"the banded and dense resamplers disagree: {bad}")
+    return out
+
+
+def phase_augment() -> dict:
+    """The augmentation's cost on the host, at one torch thread as in a
+    loader worker.  The banks of every pitch step and speed factor of
+    light / aggressive at 16 kHz, designed from nothing under tracemalloc
+    (peak host bytes, and the bytes each resampler keeps); each step and
+    factor on one batch of 32 x 40000 once; then the worst case, every
+    transform firing at the slowest step and factor on the batch and its
+    airborne pair, three times (median)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        design_band.cache_clear()
+        design_kernel.cache_clear()
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        kept = {f"pitch {st}": KaiserResampler(int(16000 / 2.0 ** (-st / 12)), 16000).nbytes() for st in PITCH_STEPS}
+        kept.update({f"speed {f}": KaiserResampler(int(round(16000 * f)), 16000).nbytes() for f in SPEED_FACTORS})
+        design_s = time.perf_counter() - t0
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        items = SyntheticVibravoxSource(32, split="speech_clean-train")
+        crops = BWECollate(16000, "constant_length-2500-ms", seed=0)([items[i] for i in range(32)])
+        body, air = (crops[k][:, :, 0] for k in ("audio_body_conducted", "audio_airborne"))
+        pitch_s, speed_s = {}, {}
+        for st in PITCH_STEPS:
+            t0 = time.perf_counter()
+            augment.pitch_shift(body, 16000, st)
+            pitch_s[st] = time.perf_counter() - t0
+        for f in SPEED_FACTORS:
+            t0 = time.perf_counter()
+            augment.speed_perturbation(body, 16000, f)
+            speed_s[f] = time.perf_counter() - t0
+        step, factor = max(pitch_s, key=pitch_s.get), max(speed_s, key=speed_s.get)
+        worst = augment.WaveformDataAugmentation(
+            16000, p_data_augmentation=1.0, p_speed_perturbation=1.0, p_pitch_shift=1.0, p_time_masking=1.0,
+            speed_perturbation_factors=(factor,), pitch_shift_steps=(step,), time_masking_percentage=(8,))
+        worst_s = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            w1, w2 = worst(body, air, rng=np.random.default_rng(i), mask_rng=np.random.default_rng(i))
+            worst_s.append(time.perf_counter() - t0)
+        forms = resample_forms(body)
+    finally:
+        torch.set_num_threads(threads)
+    out = {"phase": "augment", "B": 32, "T": 40000, "torch_threads": 1, "bank_design_s": design_s,
+           "bank_design_peak_host_bytes": peak, "bank_kept_bytes": kept, "bank_kept_bytes_max": max(kept.values()),
+           "pitch_shift_s_one_signal": pitch_s, "speed_perturbation_s_one_signal": speed_s,
+           "slowest_pitch_step": step, "slowest_speed_factor": factor,
+           "worst_case_s_both_signals": worst_s, "worst_case_s_median": float(np.median(worst_s)),
+           "worst_case_out_T": int(w1.shape[-1]), "resample_forms": forms}
+    emit(out)
+    if not (max(kept.values()) <= 4e6 and all(torch.isfinite(w).all() for w in (w1, w2))):
+        raise AssertionError(f"a resampler bank over 4 MB or a non-finite augmented batch: {out}")
+    return out
+
+
+LOADER_BATCHES = 32  # a pass of each train loader; the first workers x prefetch are made at once
+LOADER_SPLIT_BATCHES = 16  # batches made again in this process, timed by part
+LOADER_CONFIGS = (("bwe", "light", ("lightning_datamodule=bwe", "lightning_datamodule.dataset_name_principal=synthetic")),
+                  ("noisybwe", "aggressive", ("lightning_datamodule=noisybwe", "lightning_datamodule.dataset_name=synthetic")))
+
+
+def loader_pass(loader) -> dict:
+    """One pass of a train loader, consumed with no work between batches:
+    each batch's arrival after the iterator is made.  The first
+    ``num_workers x prefetch_factor`` batches are asked for at once; from
+    the last of them on, each batch is asked for as one arrives, so the
+    mean interval after it is the workers' rate."""
+    loader.batch_sampler.set_epoch(0)
+    first = loader.num_workers * (loader.prefetch_factor or 2)
+    t0 = time.perf_counter()
+    arrivals = []
+    for _ in loader:
+        arrivals.append(1e3 * (time.perf_counter() - t0))
+    steady = np.diff(arrivals[first - 1:])
+    return {"batches": len(arrivals), "workers": loader.num_workers, "first_wait_ms": arrivals[0],
+            "prefetched_batches": first, "steady_batches": len(steady),
+            "steady_ms_per_batch": float(np.mean(steady)), "steady_interval_ms_max": float(np.max(steady)),
+            "batches_per_s": 1e3 / float(np.mean(steady))}
+
+
+def loader_split(loader, n: int) -> dict:
+    """The first ``n`` batches of the same pass made again in this process
+    at one torch thread, as a worker makes them: the source's items
+    (``Keyed``: the synthetic source makes each utterance, the noisy one
+    its noise too) and the collate (crops, augmentation, re-crop), each
+    timed per batch (ms)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    items_ms, collate_ms = [], []
+    try:
+        for keys in list(loader.batch_sampler)[:n]:
+            t0 = time.perf_counter()
+            pairs = [loader.dataset[k] for k in keys]
+            t1 = time.perf_counter()
+            loader.collate_fn(pairs)
+            items_ms.append(1e3 * (t1 - t0))
+            collate_ms.append(1e3 * (time.perf_counter() - t1))
+    finally:
+        torch.set_num_threads(threads)
+    return {"batches": n, "items_ms_mean": float(np.mean(items_ms)), "collate_ms_mean": float(np.mean(collate_ms)),
+            "collate_ms": collate_ms, "items_ms": items_ms}
+
+
+def phase_loader(step_ms: float) -> dict:
+    """The published train loaders on the host, as the CLI composes them
+    (``bwe.yaml`` with ``light`` and ``noisybwe.yaml`` with ``aggressive``:
+    four workers, batch 32 of 2.5 s crops, the synthetic source of
+    32 x LOADER_BATCHES utterances): the batches a second their workers
+    make in steady state, against the train phase's median step (no step
+    runs meanwhile), and the first LOADER_SPLIT_BATCHES batches of the
+    pass split into the source's items and the collate with its
+    augmentation, one worker's milliseconds each."""
+    from vibravox_tpu_torch.core.config import compose, instantiate
+    from vibravox_tpu_torch.run import CONFIG_DIR, port_targets
+
+    out = {"phase": "loader", "train_step_ms_median": step_ms, "B": 32}
+    for name, augmentation, args in LOADER_CONFIGS:
+        cfg = compose(CONFIG_DIR, "run", [*args, f"++lightning_datamodule.synthetic_size={32 * LOADER_BATCHES}"])
+        port_targets(cfg, "cuda")
+        dm = instantiate(cfg.lightning_datamodule)
+        if type(dm.data_augmentation).__name__ != "WaveformDataAugmentation":
+            raise AssertionError(f"{name}'s augmentation is {dm.data_augmentation!r}")
+        dm.setup("fit")
+        loader = dm.train_dataloader()
+        row = {"augmentation": augmentation, **loader_pass(loader)}
+        del loader  # its persistent workers stop
+        row["steady_ms_per_batch_over_step"] = row["steady_ms_per_batch"] / step_ms
+        row["split"] = split = loader_split(dm.train_dataloader(), LOADER_SPLIT_BATCHES)
+        row["worker_ms_per_batch"] = split["items_ms_mean"] + split["collate_ms_mean"]
+        row["workers_ms_per_batch"] = row["worker_ms_per_batch"] / row["workers"]
+        out[name] = row
+    emit(out)
+    for name, _, _ in LOADER_CONFIGS:
+        if out[name]["batches"] != LOADER_BATCHES:
+            raise AssertionError(f"the {name} train loader gave {out[name]['batches']} batches, not {LOADER_BATCHES}")
+    return out
+
+
+def phase_npz() -> dict:
+    """The synthetic source written as npz utterances (train 64, validation
+    and test 4) and read back by the data module, with light augmentation
+    and two loader workers: its train batches of two epochs, and its
+    validation and test batches, byte-equal to the synthetic source's."""
+    def batches(dm, stage, get, epochs=(None,)):
+        dm.setup(stage)
+        loader = getattr(dm, get)()
+        out = []
+        for e in epochs:
+            if e is not None:
+                loader.batch_sampler.set_epoch(e)
+            out += [{k: v.numpy().tobytes() for k, v in b.items()} for b in loader][:4]
+        return out
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vibravox_npz_") as root:
+        for split, n in (("train", 64), ("validation", 4), ("test", 4)):
+            source = SyntheticVibravoxSource(n, split=f"speech_clean-{split}")
+            os.makedirs(os.path.join(root, split))
+            for i in range(n):
+                np.savez(os.path.join(root, split, f"{i:05d}.npz"), **source[i])
+        write_s = time.perf_counter() - t0
+        kw = dict(collate_strategy="constant_length-2500-ms", batch_size=32, num_workers=2, synthetic_size=64,
+                  seed=42, data_augmentation=augment.WaveformDataAugmentation(16000, **LIGHT), device="cuda")
+        npz, synthetic = BWEDataModule(dataset_name_principal=root, **kw), BWEDataModule(**kw)
+        same = {}
+        for stage, get, epochs in (("fit", "train_dataloader", (0, 1)), ("validate", "val_dataloader", (None,)),
+                                   ("test", "test_dataloader", (None,))):
+            a, b = batches(npz, stage, get, epochs), batches(synthetic, stage, get, epochs)
+            same[get] = {"batches": len(a), "equal": a == b and len(a) > 0}
+    out = {"phase": "npz", "utterances_written": 72, "write_s": write_s, "compared": same}
+    emit(out)
+    if not all(v["equal"] for v in same.values()):
+        raise AssertionError(f"the npz directory's batches differ from the synthetic source's: {same}")
+    return out
+
+
+NOISY_CLI_ARGS = ("lightning_datamodule=noisybwe", "lightning_module=eben", "callbacks=bwe_checkpoint",
+                  "logging=csv", "lightning_datamodule.dataset_name=synthetic",
+                  "++lightning_datamodule.synthetic_size=64",
+                  "++trainer.limit_val_batches=4", "++trainer.limit_test_batches=4", "++trainer.max_epochs=2")
+
+
+def phase_cli_noisybwe() -> dict:
+    """``run.main`` with NOISY_CLI_ARGS in a temporary run_dir: noisybwe.yaml
+    as published (its ``aggressive`` augmentation) on the synthetic source,
+    fit two epochs of two steps at batch 32, validating four batches of
+    each of the ``synthetic`` and ``real`` loaders an epoch, then
+    test("last") on four of each.  The counts are reset before the run and
+    read at the test's entry and at its end.  Every eval batch is recorded:
+    the real loader's have no airborne key, so their eval step runs the
+    generator only (K1, no K3) and returns no losses, and the test logs no
+    metric for them.  Each train step is timed by CUDA events beside its
+    data wait."""
+    from vibravox_tpu_torch import run
+
+    marks: dict = {"events": [], "eval": []}
+    train_step, eval_step, test, fit = EBENTask.train_step, EBENTask.eval_step, Trainer.test, Trainer.fit
+
+    def timed_train_step(self, state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(self, state, batch)
+        end.record()
+        marks["events"].append((start, end))
+        return out
+
+    def recorded_eval_step(self, state, batch):
+        t0 = time.perf_counter()
+        out = eval_step(self, state, batch)
+        torch.cuda.synchronize()
+        marks["eval"].append({"reference": "audio_airborne" in batch,
+                              "T": int(batch["audio_body_conducted"].shape[1]), "logs": len(out["logs"]),
+                              "ms": 1e3 * (time.perf_counter() - t0)})
+        return out
+
+    def marked_test(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["fit_end"], marks["fit_counts"], marks["fit_evals"] = time.perf_counter(), read_counts(), len(marks["eval"])
+        return test(self, *args, **kwargs)
+
+    def kept_fit(self, *args, **kwargs):
+        marks["trainer"] = self
+        return fit(self, *args, **kwargs)
+
+    EBENTask.train_step, EBENTask.eval_step, Trainer.test, Trainer.fit = (
+        timed_train_step, recorded_eval_step, marked_test, kept_fit)
+    try:
+        with tempfile.TemporaryDirectory(prefix="vibravox_noisy_cli_") as run_dir:
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = run.main([*NOISY_CLI_ARGS, f"++run_dir={run_dir}"])
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - marks["fit_end"]
+            counts = read_counts()
+            ckpt = Path(run_dir) / "checkpoints"
+            have_last = (ckpt / "last" / "state.pt").exists()
+            progress = json.loads((ckpt / "trainer_state.json").read_text())
+    finally:
+        EBENTask.train_step, EBENTask.eval_step, Trainer.test, Trainer.fit = train_step, eval_step, test, fit
+
+    fit_counts = marks["fit_counts"]
+    launches = {"fit": fit_counts, "test": {k: counts[k] - fit_counts[k] for k in counts}}
+    steps = {"train_step_ms": [a.elapsed_time(b) for a, b in marks["events"]],
+             "data_wait_ms": [1e3 * w for w in marks["trainer"].data_wait_seconds]}
+    evals = {"fit": marks["eval"][:marks["fit_evals"]], "test": marks["eval"][marks["fit_evals"]:]}
+    real = {k: [e for e in v if not e["reference"]] for k, v in evals.items()}
+    out = {"phase": "cli_noisybwe", "epochs": 2, "steps": 2 * CLI_STEPS_PER_EPOCH, "B": 32,
+           "augmentation": "aggressive", "fit_wall_s": marks["fit_end"] - t0, "test_wall_s": test_s,
+           "launches": launches, "trainer_state": progress, "last": have_last, "metrics": metrics, **steps,
+           "data_wait_against_step": wait_against_step(steps),
+           "real_batches": {k: {"count": len(v), "T": [e["T"] for e in v], "losses_logged": sum(e["logs"] for e in v),
+                                "eval_step_ms": [e["ms"] for e in v]} for k, v in real.items()},
+           "synthetic_batches": {k: len(v) - len(real[k]) for k, v in evals.items()}}
+    emit(out)
+    val, tests = CLI_VAL_BATCHES, CLI_TEST_BATCHES
+    want = {"fit": {"K1": 6 * (2 * CLI_STEPS_PER_EPOCH + 2 * 2 * val), "K2": 6 * 2 * CLI_STEPS_PER_EPOCH,
+                    "K3": 6 * (2 * CLI_STEPS_PER_EPOCH + 2 * val), "K4": 6 * 2 * CLI_STEPS_PER_EPOCH},
+            "test": {"K1": 6 * 2 * tests, "K2": 0, "K3": 6 * tests, "K4": 0}}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} on the noisy CLI's fit and test, expected {want}")
+    if progress != {"epoch": 1, "global_step": 4} or not have_last or len(steps["train_step_ms"]) != 4:
+        raise AssertionError(f"the noisy CLI's fit: progress {progress}, last {have_last}, steps {steps}")
+    if not (len(real["fit"]) == 2 * val and len(real["test"]) == tests
+            and not any(e["logs"] for v in real.values() for e in v)):
+        raise AssertionError(f"the real loader's reference-free batches: {out['real_batches']}")
+    if not ({"test/torchmetrics_stoi/synthetic", "test/torchmetrics_si_sdr/synthetic"} <= set(metrics)
+            and not any(k.endswith("/real") for k in metrics)
+            and all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"the noisy CLI's test metrics {metrics}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1236,13 +1706,18 @@ def main() -> int:
     phase_profile()
     k2_rows = phase_k2_parity()
     dft_rows = phase_k3_k4_parity()
+    pad_short = phase_pad_short()
     phase_train_parity()
     train = phase_train()
     train_profile = phase_train_profile()
     evals = phase_eval_parity()
+    phase_augment()
+    phase_loader(train["step_ms_median"])
+    phase_npz()
     cli = phase_cli()
+    noisy = phase_cli_noisybwe()
     emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                      evals, cli))
+                      evals, cli, noisy, pad_short))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1273,7 +1748,7 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                 evals, cli) -> dict:
+                 evals, cli, noisy, pad_short) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
@@ -1290,7 +1765,10 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
         return {"train_fit": train["launches"][key],
                 "cli_fit": cli["fit"]["launches"][key], "cli_test": cli["test"]["launches"][key],
                 "cli_resumed_fit": cli["resume"]["launches"]["fit"][key],
-                "cli_resumed_test": cli["resume"]["launches"]["test"][key]}
+                "cli_resumed_test": cli["resume"]["launches"]["test"][key],
+                "cli_noisybwe_fit": noisy["launches"]["fit"][key],
+                "cli_noisybwe_test": noisy["launches"]["test"][key],
+                "pad_short": pad_short["launches"][key]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]

@@ -185,11 +185,13 @@ def test_residual_stack_autograd_runs_k1_and_k2(cuda):
 
 RESOLUTIONS = [(512, 50, 240), (1024, 120, 600), (2048, 240, 1200)]
 # (fft, hop, win, B, T): the loss's resolutions at two lengths, then a ragged
-# T, B = 1, T just above fft / 2, hops below 32 and the smallest and largest fft
+# T, B = 1, T just above fft / 2, hops below 32 and the smallest and largest
+# fft, then T <= fft / 2, where the reflect pad reflects more than once
+SHORT_DFT_CASES = [(2048, 240, 1200, 2, 900), (1024, 120, 600, 2, 300)]
 DFT_CASES = [(fft, hop, win, b, t) for fft, hop, win in RESOLUTIONS for b, t in [(2, 6000), (3, 39904)]] + [
     (512, 50, 240, 2, 4001), (1024, 120, 600, 1, 7777), (2048, 240, 1200, 2, 1025),
     (512, 16, 240, 2, 3000), (256, 1, 200, 1, 700), (64, 7, 64, 3, 33), (4096, 1000, 3000, 1, 9001),
-]
+] + SHORT_DFT_CASES
 
 
 @pytest.mark.parametrize("fft,hop,win,b,t", DFT_CASES)
@@ -236,6 +238,15 @@ def test_framed_dft_backward_is_deterministic(cuda):
         g = torch.randn(mag.shape, generator=torch.Generator().manual_seed(fft)).to(cuda)
         assert torch.equal(framed_dft_backward(x, mag, g, fft, hop, win),
                            framed_dft_backward(x, mag, g, fft, hop, win))
+
+
+@pytest.mark.parametrize("fft,hop,win,b,t", SHORT_DFT_CASES)
+def test_framed_dft_backward_is_deterministic_on_short_signals(fft, hop, win, b, t, cuda):
+    x = torch.randn(b, t, generator=torch.Generator().manual_seed(t)).to(cuda)
+    mag = framed_dft_magnitude(x, fft, hop, win)
+    g = torch.randn(mag.shape, generator=torch.Generator().manual_seed(fft)).to(cuda)
+    assert torch.equal(framed_dft_backward(x, mag, g, fft, hop, win),
+                       framed_dft_backward(x, mag, g, fft, hop, win))
 
 
 def test_framed_dft_rejects_what_the_kernels_do_not_take(cuda):

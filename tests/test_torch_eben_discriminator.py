@@ -24,6 +24,8 @@ from vibravox_tpu_torch.losses.simple import L1Loss
 from vibravox_tpu_torch.models.convert import eben_discriminator_params_from_jax
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.melgan_discriminator import DiscriminatorMelGAN
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
+
 
 T = 4064
 

@@ -15,6 +15,7 @@ from vibravox_tpu.models.convert import eben_generator_params_to_torch
 from vibravox_tpu.models.eben_generator import EBENGenerator as JaxEBENGenerator
 from vibravox_tpu_torch.models.convert import eben_generator_params_from_jax
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,8 @@ from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiS
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.tasks.eben import EBENTask
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
+
 
 T = 4064
 ADAMS = dict(generator_optimizer=adam(3e-4, betas=(0.5, 0.9)),

@@ -34,6 +34,8 @@ from vibravox_tpu_torch.ops.fused_residual import (
     residual_stack,
     residual_stack_backward,
 )
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
+
 
 CASES = [(32, 700), (16, 1025), (64, 512), (32, 40)]
 

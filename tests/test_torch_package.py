@@ -130,3 +130,27 @@ def test_workflow_entry_points_without_gpu_raise(no_cuda, tmp_path):
         Trainer().test(task, BWEDataModule(synthetic_size=1, num_workers=0, device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer().fit(task, BWEDataModule(synthetic_size=1, num_workers=0, device="cpu"))
+
+
+def test_bwe_family_data_modules_without_gpu_raise(no_cuda):
+    """Both BWE data modules pin their batches for the GPU unless asked for
+    the CPU, and raise without one."""
+    from vibravox_tpu_torch.data.bwe import BWEDataModule
+    from vibravox_tpu_torch.data.noisybwe import NoisyBWEDataModule
+
+    for make in (BWEDataModule, NoisyBWEDataModule):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(dataset_name_principal="synthetic") if make is BWEDataModule else make(dataset_name="synthetic")
+        assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_native_pipeline_has_no_switch_and_no_fallback():
+    """The native collate is always used: no environment switch turns it
+    off, and its loader raises a build failure instead of falling back."""
+    import inspect
+
+    from vibravox_tpu_torch.native import build, pipeline
+
+    for module in (build, pipeline):
+        source = inspect.getsource(module)
+        assert "os.environ" not in source and "except" not in source

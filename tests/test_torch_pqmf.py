@@ -15,6 +15,7 @@ from vibravox_tpu.ops.pqmf import PQMF as JaxPQMF
 from vibravox_tpu.ops.pqmf import design_pqmf_bank as jax_design
 from vibravox_tpu_torch.ops import conv as tconv
 from vibravox_tpu_torch.ops.pqmf import PQMF, design_pqmf_bank
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _ncw(x_nwc: np.ndarray) -> torch.Tensor:

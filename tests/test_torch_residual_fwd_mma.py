@@ -25,6 +25,8 @@ import pytest
 import torch
 
 from vibravox_tpu_torch.ops.fused_residual import plain_residual_stack
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
+
 
 WARPS = 8  # kThreads / 32
 HALO = 13  # kHalo: 1 + 3 + 9

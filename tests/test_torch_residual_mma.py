@@ -15,6 +15,8 @@ one plain unit.  Every output cell must be written exactly once.  No JAX.
 import pytest
 import torch
 import torch.nn.functional as F
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
+
 
 WARPS = 8  # kThreads / 32
 MAX_D = 9  # kMaxD

@@ -1,8 +1,9 @@
 """PyTorch port: EnhanceServer and StreamingEnhancer on the CPU.
 
 The server's outputs are held to a direct forward of the same model at
-1e-5 (the same float32 ops on a zero-padded batch); the port's resampler is
-held to the JAX package's numpy resampler at 1e-6."""
+1e-5 (the same float32 ops on a zero-padded batch); the port's resampler
+(the native library's, with its numpy twin) is held to the JAX package's
+numpy resampler at 1e-6."""
 
 from concurrent.futures import Future
 
@@ -11,9 +12,10 @@ import pytest
 import torch
 
 from vibravox_tpu.native.pipeline import _resample_poly_numpy
-from vibravox_tpu_torch.host_resample import host_resample
+from vibravox_tpu_torch.native.pipeline import resample_poly, resample_poly_numpy
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
 from vibravox_tpu_torch.serving import EnhanceServer, StreamingEnhancer, _Request
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 @pytest.fixture(scope="module")
@@ -118,9 +120,10 @@ def test_arbitrary_input_rate_round_trip(server):
 def test_resampler_matches_jax_numpy_twin(orig, new):
     x = np.random.default_rng(4).standard_normal(4000).astype(np.float32)
     ref = _resample_poly_numpy(x, orig, new)
-    out = host_resample(x, orig, new)
+    out = resample_poly(x, orig, new)
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+    assert resample_poly_numpy(x, orig, new).tobytes() == ref.tobytes()
 
 
 def test_streaming_matches_offline_interior(model):

@@ -45,6 +45,8 @@ from vibravox_tpu_torch.ops.pallas_stft import (
     reflect_index,
 )
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss, a_weighting_fir, apply_fir
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
+
 
 RESOLUTIONS = [(512, 50, 240), (1024, 120, 600), (2048, 240, 1200)]
 
@@ -174,8 +176,9 @@ def _load_frames(x, f, fft, hop, win):
     n = torch.arange(fft)
     pad_l = (fft - win) // 2
     g = f[:, None] * hop + n[None, :] - fft // 2
-    g = torch.where(g < 0, -g, g)
-    g = torch.where(g > t_len - 1, 2 * (t_len - 1) - g, g)
+    period = 2 * (t_len - 1)  # reflect_periodic: mirrored again past either end
+    m = g.abs() % period
+    g = torch.where((g >= 0) & (g < t_len), g, torch.where(m > t_len - 1, period - m, m))
     keep = (f[:, None] < 1 + t_len // hop) & (n >= pad_l) & (n < pad_l + win)
     return torch.where(keep, x[:, g.clamp(0, t_len - 1)], torch.zeros((), dtype=x.dtype))
 
@@ -245,11 +248,24 @@ def _emulate_k4(x, mag, g, fft, hop, win, eps):
             s += torch.where(hit, partial[:, c, j.clamp(0, span - 1)], torch.zeros((), dtype=x.dtype))
         return s
 
+    # the transpose of the reflect pad: t's own padded position first, then
+    # the mirrors u = k period - t (none for t = 0, T - 1) and the images
+    # u = t + k period, k != 0, each in [-pad, T - 1 + pad], in increasing u
     t = torch.arange(t_len)
+    period, last = 2 * (t_len - 1), t_len - 1 + pad
     zero = torch.zeros((), dtype=x.dtype)
-    return (chunk_sum(t + pad)
-            + torch.where((t >= 1) & (t <= pad), chunk_sum(pad - t), zero)
-            + torch.where((t >= t_len - 1 - pad) & (t <= t_len - 2), chunk_sum(pad + 2 * (t_len - 1) - t), zero))
+    dx = chunk_sum(t + pad)
+    inner = (t > 0) & (t < t_len - 1)
+    u = -torch.div(-(t - pad), period, rounding_mode="floor") * period - t
+    while bool((inner & (u <= last)).any()):
+        dx = dx + torch.where(inner & (u <= last), chunk_sum((u + pad).clamp(0, last + pad)), zero)
+        u = u + period
+    u = t - torch.div(t + pad, period, rounding_mode="floor") * period
+    while bool((u <= last).any()):
+        hit = (u <= last) & (u != t)
+        dx = dx + torch.where(hit, chunk_sum((u + pad).clamp(0, last + pad)), zero)
+        u = u + period
+    return dx
 
 
 @pytest.mark.parametrize("fft", [2**e for e in range(MIN_FFT.bit_length() - 1, MAX_FFT.bit_length())])
@@ -265,7 +281,9 @@ def test_stockham_stages_are_the_dft_at_every_kernel_fft(fft):
 # + 1, and near silence (x scaled by 1e-7) over `silence` samples from T / 3,
 # longer than the window, so whole frames clamp at eps and gom is 0 there
 EMULATED = [(fft, hop, win, 2999, 0) for fft, hop, win in RESOLUTIONS] + [
-    (256, 16, 200, 2999, 0), (2048, 240, 1200, 1025, 0), (512, 50, 240, 2999, 1024)]
+    (256, 16, 200, 2999, 0), (2048, 240, 1200, 1025, 0), (512, 50, 240, 2999, 1024),
+    # T <= fft / 2, reflected more than once: the pad collate's short batches
+    (2048, 240, 1200, 900, 0), (1024, 120, 600, 300, 0), (512, 16, 240, 100, 0)]
 
 
 @pytest.mark.parametrize("fft,hop,win,t_len,silence", EMULATED)
@@ -289,13 +307,14 @@ def test_kernel_arithmetic_matches_plain_in_float64(fft, hop, win, t_len, silenc
     ((2, 3000), torch.float32, 8192, 50, 240, ValueError, "power-of-two fft"),
     ((2, 3000), torch.float32, 32, 8, 32, ValueError, "power-of-two fft"),
     ((2, 3000), torch.float64, 512, 50, 240, TypeError, "float32"),
-    ((2, 256), torch.float32, 512, 50, 240, ValueError, "T > 256"),
+    ((2, 1), torch.float32, 512, 50, 240, ValueError, "T >= 2"),
     ((2, 3000), torch.float32, 512, 50, 600, ValueError, "win <= fft"),
 ])
 def test_cuda_path_rejects_what_the_kernels_do_not_take(shape, dtype, fft, hop, win, error, match):
     with pytest.raises(error, match=match):
         _check_cuda(torch.empty(shape, dtype=dtype), fft, hop, win)
     _check_cuda(torch.empty(2, 3000), 512, 1, 512)  # any hop, any win up to fft
+    _check_cuda(torch.empty(2, 300), 2048, 240, 1200)  # T <= fft / 2: reflected more than once
 
 
 @pytest.mark.parametrize("t", [1000, 1001])

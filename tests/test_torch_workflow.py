@@ -38,14 +38,7 @@ from vibravox_tpu_torch.models.eben_generator import EBENGenerator
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.tasks.eben import EBENTask
 from vibravox_tpu_torch.tasks.se_metrics import SEMetrics
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _task(seed=0, **kw):
@@ -153,14 +146,6 @@ def test_eval_loaders_and_stages():
     single = _dm(0)
     single.setup("test")
     assert isinstance(single.test_dataloader(), torch.utils.data.DataLoader)
-
-
-@pytest.mark.parametrize("kw", [{"streaming": True}, {"data_augmentation": {"_target_": "x"}},
-                                {"dataset_name_principal": "Cnam-LMSSC/vibravox"},
-                                {"dataset_name_secondary": "Cnam-LMSSC/vibravox-test"}])
-def test_data_module_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
-        _dm(0, **kw)
 
 
 class _Box:

@@ -52,6 +52,8 @@ from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.run import CONFIG_DIR, port_targets
 from vibravox_tpu_torch.tasks.eben import EBENTask
 from vibravox_tpu_torch.tasks.se_metrics import SEMetrics
+from torch_support import one_thread  # noqa: F401  (autouse: torch on one thread)
+
 
 T = 4500
 

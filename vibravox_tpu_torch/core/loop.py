@@ -187,6 +187,8 @@ class Trainer:
         while epoch < self.max_epochs:
             self.current_epoch = epoch
             sampler = getattr(train_loader, "batch_sampler", None)
+            if not hasattr(sampler, "set_epoch"):  # a stream keys its dataset
+                sampler = getattr(train_loader, "dataset", None)
             if hasattr(sampler, "set_epoch"):
                 # the shuffle and crops follow the trainer's epoch, so a
                 # resumed run sees epoch N's batches, not epoch 0's again

@@ -5,7 +5,9 @@
 // (launched by _pallas_forward), K4 its _bwd_kernel (launched by
 // _pallas_backward).  Both take the unpadded signal x (B, T) and frame it as
 // torch.stft(center=True) does: frame f covers the samples f hop + n, n < fft,
-// of x reflect-padded by pad = fft / 2 on each side, and its periodic Hann
+// of x reflect-padded by pad = fft / 2 on each side (numpy's "reflect",
+// which reflects again where pad >= T: the index runs with period 2 (T - 1),
+// so any T >= 2 is taken), and its periodic Hann
 // window (win taps, zero-padded to fft) starts at pad_l = (fft - win) / 2:
 //
 //     X_f[k] = sum_n w[n] xp[f hop + n] exp(-2 pi i n k / fft),   k <= fft / 2,
@@ -29,7 +31,8 @@
 //   fft-point FFT Z, separated after it as X_a[k] = (Z[k] + conj Z[-k]) / 2
 //   and X_b[k] = (Z[k] - conj Z[-k]) / 2i.
 // - The frames are copied from x into shared memory with cp.async, the
-//   reflect pad done by the mirrored source index; each tap of a frame is
+//   reflect pad done by the mirrored source index (reflect_periodic); each
+//   tap of a frame is
 //   its own copy, so any hop fits (overlapping frames read x again, mostly
 //   from L1 and L2).  The window multiplies the points as the
 //   first FFT stage reads them; the taps outside it are zero.
@@ -48,8 +51,9 @@
 //   (2P - 1) hop + win of them, into its own row of a scratch buffer; each
 //   thread owns its positions and adds the frames in order.  A second,
 //   elementwise kernel gives dx[t] the sum, in chunk order, of the rows
-//   covering t's padded position and its reflect mirrors: the transpose of
-//   the reflect pad.  No two threads write one value and no float atomics
+//   covering t's padded position and every other padded position that
+//   reflects to t (one mirror a side for T > pad, more for a shorter
+//   signal): the transpose of the reflect pad.  No two threads write one value and no float atomics
 //   are used, so dx is bit-equal from run to run; the scratch rows are
 //   1.5-3x the size of x at the loss's resolutions.  Owning frames, not
 //   output samples, recomputes no frame twice and gives K4 K3's grid.
@@ -171,6 +175,15 @@ __device__ __forceinline__ void fft(float2* z, int u, const float2* __restrict__
   radix8_stages<N, kFirst>(z, u, tw);
 }
 
+// source index of the padded position g + pad under numpy's "reflect" pad,
+// which reflects again where the overhang reaches t_len: period 2 (t_len - 1)
+__device__ __forceinline__ int reflect_periodic(int g, int t_len) {
+  if (g >= 0 && g < t_len) return g;
+  const int period = 2 * (t_len - 1);
+  const int m = (g < 0 ? -g : g) % period;
+  return m > t_len - 1 ? period - m : m;
+}
+
 __device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
@@ -195,7 +208,7 @@ __device__ __forceinline__ void load_frames(float2* z, const float* __restrict__
     float* dst = zf + 2 * ((fl >> 1) * N + n) + (fl & 1);
     const int f = fc + fl;
     if (f < n_frames && n >= pad_l && n < pad_l + win)
-      cp_async_f32(dst, xb + reflect(f * hop + n - N / 2, t_len));
+      cp_async_f32(dst, xb + reflect_periodic(f * hop + n - N / 2, t_len));
     else
       *dst = 0.f;
   }
@@ -317,18 +330,24 @@ __device__ __forceinline__ float chunk_sum(const float* __restrict__ pb, int q, 
 }
 
 // K4's second pass: dx[t] = the partial sums at t's padded position t + pad
-// and, the transpose of the reflect pad, at its mirror positions pad - t (t
-// in [1, pad]) and pad + 2 (T - 1) - t (t in [T - 1 - pad, T - 2])
+// and then, the transpose of the reflect pad, at every other padded
+// position u + pad, u in [-pad, T - 1 + pad], that reflects to t: the
+// mirrors u = k period - t (none for t = 0 or T - 1, whose mirrors are its
+// images) and the images u = t + k period, k != 0, period = 2 (T - 1).
+// For T > pad that is at most the mirrors pad - t and pad + 2 (T - 1) - t.
 __global__ void __launch_bounds__(256)
 framed_dft_backward_sum_kernel(const float* __restrict__ partial, float* __restrict__ dx, int t_len,
                                int n_chunks, int chunk_hop, int span, int pad, int pad_l) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= t_len) return;
   const float* pb = partial + static_cast<size_t>(blockIdx.y) * n_chunks * span;
+  const int period = 2 * (t_len - 1), last = t_len - 1 + pad;
   float s = chunk_sum(pb, t + pad, n_chunks, chunk_hop, span, pad_l);
-  if (t >= 1 && t <= pad) s += chunk_sum(pb, pad - t, n_chunks, chunk_hop, span, pad_l);
-  if (t >= t_len - 1 - pad && t <= t_len - 2)
-    s += chunk_sum(pb, pad + 2 * (t_len - 1) - t, n_chunks, chunk_hop, span, pad_l);
+  if (t > 0 && t < t_len - 1)
+    for (int u = -floor_div(-(t - pad), period) * period - t; u <= last; u += period)
+      s += chunk_sum(pb, u + pad, n_chunks, chunk_hop, span, pad_l);
+  for (int u = t - (t + pad) / period * period; u <= last; u += period)
+    if (u != t) s += chunk_sum(pb, u + pad, n_chunks, chunk_hop, span, pad_l);
   dx[static_cast<size_t>(blockIdx.y) * t_len + t] = s;
 }
 
@@ -349,7 +368,7 @@ cudaError_t dispatch_fft(int fft, F&& f) {
 
 bool valid_geometry(int batch, int t_len, int n_frames, int fft, int hop, int pad_l, int win) {
   return batch >= 1 && batch <= 65535 && hop >= 1 && win >= 1 && win <= fft &&
-         pad_l == (fft - win) / 2 && t_len > fft / 2 && n_frames == 1 + t_len / hop;
+         pad_l == (fft - win) / 2 && t_len >= 2 && n_frames == 1 + t_len / hop;
 }
 
 }  // namespace

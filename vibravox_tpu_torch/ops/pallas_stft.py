@@ -20,9 +20,12 @@ of the reflect pad happen inside them (K4 is two launches: the frames'
 gradients into a scratch buffer, then their ordered sum into dx).  Their
 only tables are the fft-point twiddles and the fft-long window
 (``_kernel_tables``), built once per resolution on the host in float64 and
-cached on the device.  The CUDA path takes a power-of-two fft from 64 to
-4096 (the JAX function takes any even fft), any hop, and T > fft / 2 (K4's
-fold adds one mirror per side); the plain path takes any T >= 2.
+cached on the device.  Both pad by repeated reflection, as ``jnp.pad``
+does, so a signal no longer than fft / 2 is taken: K3 reads it through
+the periodic mirrored index, and K4's fold adds every padded position that
+reflects to a sample.  The CUDA path takes a power-of-two fft from 64 to
+4096 (the JAX function takes any even fft), a batch of at most 65535 and
+any hop; both paths take any T >= 2.
 """
 
 from __future__ import annotations
@@ -167,8 +170,8 @@ def _check_cuda(x: torch.Tensor, fft_size: int, hop: int, win_length: int) -> No
         raise ValueError(f"need 0 < win <= fft, got fft={fft_size}, win={win_length}")
     if hop < 1:
         raise ValueError(f"need hop >= 1, got {hop}")
-    if x.shape[1] <= fft_size // 2:
-        raise ValueError(f"reflect padding by {fft_size // 2} needs T > {fft_size // 2}, got {x.shape[1]}")
+    if x.shape[1] < 2:
+        raise ValueError(f"the reflect pad needs T >= 2, got {x.shape[1]}")
 
 
 def _launch_magnitude(x, fft_size, hop, win_length, eps) -> torch.Tensor:

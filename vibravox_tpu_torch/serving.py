@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device
-from vibravox_tpu_torch.host_resample import host_resample
+from vibravox_tpu_torch.native.pipeline import resample_poly
 
 __all__ = ["EnhanceServer", "StreamingEnhancer"]
 
@@ -131,15 +131,15 @@ class EnhanceServer:
         same length.
 
         ``input_sample_rate`` accepts requests at other rates: the audio is
-        resampled to the model rate on the host and the result is resampled
-        back, so callers get their own rate and length back."""
+        resampled to the model rate on the host (``native.resample_poly``,
+        C++) and the result is resampled back, so callers get their own rate and length back."""
         if self._closed:
             raise RuntimeError("server is closed")
         audio = np.asarray(audio, np.float32).reshape(-1)
         in_rate = int(input_sample_rate or self.sample_rate)
         in_len = len(audio)
         if in_rate != self.sample_rate:
-            audio = host_resample(audio, in_rate, self.sample_rate)
+            audio = resample_poly(audio, in_rate, self.sample_rate)
         fut: Future = Future()
         if in_rate != self.sample_rate:
             inner: Future = Future()
@@ -148,7 +148,7 @@ class EnhanceServer:
                 if f.exception() is not None:
                     fut.set_exception(f.exception())
                     return
-                out = host_resample(f.result(), self.sample_rate, in_rate)
+                out = resample_poly(f.result(), self.sample_rate, in_rate)
                 if len(out) < in_len:  # ceil-length mismatch at the edge
                     out = np.pad(out, (0, in_len - len(out)))
                 fut.set_result(out[:in_len])
