@@ -97,7 +97,27 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     of the ``synthetic`` and ``real`` loaders: K1-K4 launches asserted, the
     real loader's batches reference-free (no airborne key, no losses, no
     metrics), each step's data wait against its time;
-19. the ``kernels`` line (all four kernels), then the result line.
+19. stp_parity: the STP slice (wav2vec2-CTC, no hand-written kernel on its
+    path) in float32 under ``strict_float32``: the full-width base model
+    (seed 0) in eval on 2 x 48000 samples, card against CPU (1e-4 of
+    scale); one train step at hidden 256 / 4 layers with the random parts
+    off (loss 1e-4 relative, parameters within 1e-2 of the update); the
+    CTC loss at the recipe's shapes (value 1e-5 relative, each row's
+    gradient within 1e-5 + 1e-6 x its loss);
+20. stp_train / stp_profile: ``Trainer.fit`` of the published STP task
+    (the base model through the from_pretrained config, reading a local
+    checkpoint written from seed 0) on the synthetic ``STPDataModule`` at
+    batch 8, bf16-mixed, 28 synchronised steps: step times, audio-s/s,
+    padded lengths, data waits, peak memory, model FLOPs and their share of
+    the bf16 peak; then a CUDA-only trace of 5 steps by kernel kind, the
+    idle share, and the positional conv alone; no K1-K4 launch;
+21. cli_stp: ``run.main`` with ``lightning_datamodule=stp
+    lightning_module=wav2vec2_for_stp callbacks=stp_checkpoint
+    logging=csv`` on the synthetic source, two epochs of two steps, then
+    test("last"), then a resumed third epoch: finite ``test/ctc_loss`` and
+    ``test/char_error_rate``, the fit's wall, the test seconds per batch
+    split into the eval step and the host decode + CER;
+22. the ``kernels`` line (all four kernels), then the result line.
 
 Phases 3 and 7 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
@@ -125,11 +145,15 @@ from vibravox_tpu_torch.core.loop import Trainer
 from vibravox_tpu_torch.core.optim import adam, sgd
 from vibravox_tpu_torch.data.bwe import BWEDataModule
 from vibravox_tpu_torch.data.collate import BWECollate
+from vibravox_tpu_torch.data.features import Wav2Vec2FeatureExtractor
+from vibravox_tpu_torch.data.phonemes import load_phoneme_tokenizer
 from vibravox_tpu_torch.data.sources import SyntheticVibravoxSource
+from vibravox_tpu_torch.data.stp import STPCollate, SyntheticSTPSource
 from vibravox_tpu_torch.device import strict_float32
 from vibravox_tpu_torch.losses.gan import FeatureMatchingLoss, HingeLoss
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
+from vibravox_tpu_torch.models.wav2vec2 import save_pretrained, wav2vec2_for_ctc_from_config
 from vibravox_tpu_torch.ops import _build
 from vibravox_tpu_torch.ops import augment
 from vibravox_tpu_torch.ops.fused_residual import (
@@ -147,10 +171,12 @@ from vibravox_tpu_torch.ops.pallas_stft import (
     plain_framed_dft_magnitude,
 )
 from vibravox_tpu_torch.ops import resample
+from vibravox_tpu_torch.ops.ctc import ctc_loss
 from vibravox_tpu_torch.ops.resample import KaiserResampler, bank_nbytes, design_band, design_kernel
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.serving import EnhanceServer
 from vibravox_tpu_torch.tasks.eben import EBENTask
+from vibravox_tpu_torch.tasks.wav2vec2_stp import Wav2Vec2STPTask
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -1686,6 +1712,384 @@ def phase_cli_noisybwe() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the STP slice: wav2vec2-CTC speech-to-phoneme (no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+STP_B = 8  # stp.yaml's batch_size
+STP_STEPS, STP_WARMUP, STP_PROFILE_STEPS = 28, 4, 5
+STP_PARITY_T = 48000  # 3 s: 149 frames
+STP_NARROW = dict(hidden_size=256, num_hidden_layers=4, num_attention_heads=4, intermediate_size=1024)
+STP_QUIET = dict(hidden_dropout=0.0, activation_dropout=0.0, feat_proj_dropout=0.0, mask_time_prob=0.0,
+                 mask_feature_prob=0.0, layerdrop=0.0)
+STP_CLI_EPOCH_STEPS, STP_CLI_VAL_BATCHES, STP_CLI_TEST_BATCHES = 2, 2, 4
+
+
+def stp_workers() -> int:
+    """stp.yaml's 16 loader workers, capped at the host's CPU count."""
+    return min(16, os.cpu_count() or 1)
+
+
+def stp_weights(directory: str) -> str:
+    """The base model (seed 0, random weights) written as a pretraining
+    checkpoint: config.json and pytorch_model.bin without lm_head, the
+    layout of a hub wav2vec2, read by the published from_pretrained config."""
+    save_pretrained(wav2vec2_for_ctc_from_config(seed=0, device="cpu"), directory, with_lm_head=False)
+    return directory
+
+
+def stp_args(weights: str) -> list:
+    return ["lightning_datamodule=stp", "lightning_module=wav2vec2_for_stp",
+            "lightning_datamodule.dataset_name_principal=synthetic",
+            f"lightning_module.wav2vec2_for_ctc.pretrained_model_name_or_path={weights}",
+            f"++lightning_datamodule.num_workers={stp_workers()}"]
+
+
+def phase_stp_parity() -> dict:
+    """float32, cuDNN's convolutions in IEEE float32 (``strict_float32``).
+    The base model (seed 0) in eval on 2 x 48000 samples, card against CPU
+    (logits 1e-4 of scale); one train step at hidden 256 / 4 layers (the
+    base conv stack, frozen as in the recipe; dropouts, SpecAugment and
+    layerdrop off; SGD lr 1e-3, so an update is proportional to its
+    gradient) on a synthetic STP batch (loss 1e-4 relative, parameters
+    within 1e-2 of the update, per tensor; the attention's key biases, whose
+    gradient is 0 but for noise, must move by at most 1e-6 of the largest
+    update on both sides); the CTC loss at the recipe's shapes (B 8, 149-299
+    frames, 38 classes, labels padded to 128; value 1e-5 relative; the
+    gradient of the summed losses within 1e-5 + 1e-6 x its row's loss: each
+    CTC posterior is exp(alpha + beta - loss) from float32 sums whose
+    rounding grows with the loss, and at these shapes (losses 468-905) the
+    CPU's float32 gradient is 1.5-3.3e-7 x the loss from float64's)."""
+    out = {"phase": "stp_parity"}
+    gen = np.random.default_rng(5)
+    with strict_float32():
+        cpu = wav2vec2_for_ctc_from_config(seed=0, device="cpu")
+        gpu = wav2vec2_for_ctc_from_config(seed=0, device="cuda")
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        x = torch.from_numpy(gen.standard_normal((2, STP_PARITY_T)).astype(np.float32))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu(x)
+        cpu_s = time.perf_counter() - t0
+        with torch.no_grad():
+            got = gpu(x.cuda()).cpu()
+        out["base_eval"] = {"B": 2, "T": STP_PARITY_T, "frames": int(want.shape[1]), "cpu_forward_s": cpu_s,
+                            "err_over_scale": rel_err(got, want), "tol": 1e-4}
+        del cpu, gpu
+
+        tok = load_phoneme_tokenizer()
+        src = SyntheticSTPSource(tok, n_utterances=2, sample_rate=16000, split="stp-train")
+        batch = STPCollate(Wav2Vec2FeatureExtractor(), tok, deterministic=True)([src[0], src[1]])
+        tasks = {}
+        for device in ("cpu", "cuda"):
+            model = wav2vec2_for_ctc_from_config(seed=1, device=device, **STP_NARROW, **STP_QUIET)
+            tasks[device] = Wav2Vec2STPTask(wav2vec2_for_ctc=model, optimizer=sgd(1e-3), device=device)
+        tasks["cuda"].wav2vec2_for_ctc.load_state_dict(tasks["cpu"].wav2vec2_for_ctc.state_dict())
+        before = {k: v.detach().clone() for k, v in tasks["cpu"].wav2vec2_for_ctc.state_dict().items()}
+        t0 = time.perf_counter()
+        _, logs_cpu = tasks["cpu"].train_step(tasks["cpu"].init_state(0), batch)
+        step_cpu_s = time.perf_counter() - t0
+        _, logs_gpu = tasks["cuda"].train_step(tasks["cuda"].init_state(0), batch)
+        after_cpu = tasks["cpu"].wav2vec2_for_ctc.state_dict()
+        after_gpu = {k: v.cpu() for k, v in tasks["cuda"].wav2vec2_for_ctc.state_dict().items()}
+        largest = max(float((after_cpu[k] - b).norm()) for k, b in before.items())
+        worst, bad = 0.0, []
+        for k, b in before.items():
+            step, diff = float((after_cpu[k] - b).norm()), float((after_gpu[k] - after_cpu[k]).norm())
+            if "attention.k_proj.bias" in k:
+                if max(step, float((after_gpu[k] - b).norm())) > 1e-6 * largest:
+                    bad.append(k)
+                continue
+            if diff > 1e-2 * step + 1e-7:
+                bad.append(k)
+            if step > 0:
+                worst = max(worst, diff / step)
+        loss_cpu, loss_gpu = float(logs_cpu["train/ctc_loss"]), float(logs_gpu["train/ctc_loss"])
+        out["narrow_train_step"] = {"B": 2, "T": int(batch["audio"].shape[1]), **STP_NARROW,
+                                    "cpu_step_s": step_cpu_s, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu,
+                                    "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu), "loss_tol": 1e-4,
+                                    "params_max_diff_over_update": worst, "params_tol": 1e-2,
+                                    "params_out_of_tol": bad}
+        del tasks
+
+        lengths = [299, 280, 250, 220, 200, 180, 160, 149]
+        labels_n = [60, 55, 50, 45, 40, 35, 30, 25]
+        logits = torch.from_numpy(gen.standard_normal((STP_B, 299, 38)).astype(np.float32))
+        logit_pad = torch.zeros(STP_B, 299)
+        labels = torch.zeros(STP_B, 128, dtype=torch.int32)
+        label_pad = torch.ones(STP_B, 128)
+        for b, (t, n) in enumerate(zip(lengths, labels_n)):
+            logit_pad[b, t:] = 1
+            labels[b, :n] = torch.from_numpy(gen.integers(0, 35, n).astype(np.int32))
+            label_pad[b, :n] = 0
+        res = {}
+        for device in ("cpu", "cuda"):
+            lg = logits.to(device, copy=True).requires_grad_(True)
+            per = ctc_loss(lg, logit_pad.to(device), labels.to(device), label_pad.to(device), blank_id=35)
+            per.sum().backward()
+            res[device] = (per.detach().cpu(), lg.grad.cpu())
+        value_err = float(((res["cuda"][0] - res["cpu"][0]).abs() / res["cpu"][0].abs()).max())
+        grad_err = (res["cuda"][1] - res["cpu"][1]).abs().amax(dim=(1, 2))
+        grad_tol = 1e-5 + 1e-6 * res["cpu"][0]
+        out["ctc"] = {"B": STP_B, "frames": lengths, "labels": labels_n, "classes": 38, "label_pad_to": 128,
+                      "value_rel_err": value_err, "value_tol": 1e-5, "grad_abs_err_per_row": grad_err.tolist(),
+                      "grad_tol_per_row": grad_tol.tolist(), "losses_cpu": res["cpu"][0].tolist()}
+    emit(out)
+    if not out["base_eval"]["err_over_scale"] <= 1e-4:
+        raise AssertionError("the base model's logits on the card differ from the CPU's")
+    step = out["narrow_train_step"]
+    if not (step["loss_rel_err"] <= 1e-4 and not bad):
+        raise AssertionError(f"the STP train step on the card differs from the CPU's: {step}")
+    if not (value_err <= 1e-5 and bool((grad_err <= grad_tol).all())):
+        raise AssertionError(f"the CTC loss on the card differs from the CPU's: {out['ctc']}")
+    return out
+
+
+def stp_step_flops(config, batch: int, samples: int) -> float:
+    """Model FLOPs of one train step, counted from the config (2 per
+    multiply-add): the frozen conv stack forward once, everything after it
+    forward and backward (3x its forward: the backward computes the
+    gradients of both the activations and the weights)."""
+    t, cin, conv = samples, 1, 0.0
+    for dim, k, s in zip(config.conv_dim, config.conv_kernel, config.conv_stride):
+        t = (t - k) // s + 1
+        conv += 2 * cin * dim * k * t * batch
+        cin = dim
+    h, f, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    tokens = t * batch
+    rest = 2 * cin * h * tokens  # feature projection
+    rest += 2 * (h // config.num_conv_pos_embedding_groups) * h * config.num_conv_pos_embeddings * tokens
+    per_layer = 2 * (4 * h * h + 2 * h * f) * tokens + 2 * 2 * t * t * h * batch  # projections, FFN, QK^T and PV
+    rest += config.num_hidden_layers * per_layer + 2 * h * v * tokens
+    return conv + 3 * rest
+
+
+def stp_kind(name: str) -> str:
+    low = name.lower()
+    if "ctc" in low:
+        return "CTC"
+    if any(s in low for s in ("flash", "fmha", "attention", "efficient")):
+        return "attention"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "Adam"
+    if any(s in low for s in ("dgrad", "wgrad")) or ("conv" in low and "bwd" in low):
+        return "conv backward (the grouped positional conv; the conv stack is frozen)"
+    if any(s in low for s in ("conv", "fprop", "implicit", "cudnn")):
+        return "conv forward (the conv stack and the positional conv)"
+    if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")):
+        return "GEMMs"
+    return "norms and elementwise"
+
+
+def pos_conv_ms(task, frames: int) -> dict:
+    """The grouped positional conv of the base model alone at the step's
+    shape (B 8, 768 channels, ``frames``), in bf16 as in the step and in
+    float32 (IEEE): forward, and forward plus backward, by CUDA events."""
+    pos = task.wav2vec2_for_ctc.wav2vec2.encoder.pos_conv_embed
+    h = torch.randn(STP_B, frames, pos.conv.in_channels, device="cuda", requires_grad=True)
+    out = {"frames": frames}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        def fwd():
+            with torch.no_grad():
+                pos(h, dtype)
+
+        def fwd_bwd():
+            pos(h, dtype).sum().backward()
+
+        with strict_float32():
+            out[f"{name}_forward_ms"] = cuda_ms(fwd, 20)
+            out[f"{name}_forward_backward_ms"] = cuda_ms(fwd_bwd, 10)
+    return out
+
+
+def phase_stp_train(weights: str) -> dict:
+    """The STP train path: ``Trainer.fit`` of the published task
+    (wav2vec2_for_stp.yaml: the base model through its from_pretrained
+    config and overrides, the frozen conv stack, Adam 3e-4 / (0.5, 0.9)) on
+    the synthetic ``STPDataModule`` of stp.yaml (batch 8, its 16 workers
+    capped at the CPU count), ``precision="bf16-mixed"``, STP_STEPS steps
+    each synchronised.  Then the untraced wall of STP_PROFILE_STEPS steps
+    on one device batch, their device time by kind from a CUDA-only trace,
+    the idle share, the positional conv alone, and the model FLOPs a step."""
+    from torch.autograd import DeviceType
+
+    from vibravox_tpu_torch import run
+    from vibravox_tpu_torch.core.config import compose, instantiate
+
+    cfg = compose(run.CONFIG_DIR, "run", [*stp_args(weights),
+                                          f"++lightning_datamodule.synthetic_size={STP_B * STP_STEPS}"])
+    run.port_targets(cfg, "cuda")
+    torch.manual_seed(0)
+    dm = instantiate(cfg.lightning_datamodule)
+    task = instantiate(cfg.lightning_module)
+    seen = {"T": [], "batch": None}
+    train_step = Wav2Vec2STPTask.train_step
+
+    def recorded(self, state, batch):
+        seen["T"].append(int(batch["audio"].shape[1]))
+        seen["batch"] = batch
+        return train_step(self, state, batch)
+
+    trainer = Trainer(max_epochs=1, log_every_n_steps=1, limit_train_batches=STP_STEPS, limit_val_batches=0,
+                      sync_every_step=True, precision="bf16-mixed", seed=42)
+    torch.cuda.reset_peak_memory_stats()
+    Wav2Vec2STPTask.train_step = recorded
+    try:
+        reset_counts()
+        trainer.fit(task, dm)
+        counts = read_counts()
+    finally:
+        Wav2Vec2STPTask.train_step = train_step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [1e3 * s for s in trainer.step_seconds]
+    wait_ms = [1e3 * w for w in trainer.data_wait_seconds]
+    losses = [lg["train/ctc_loss"] for _, lg in trainer.logged if "train/ctc_loss" in lg]
+    later = step_ms[STP_WARMUP:]
+    audio_rate = [STP_B * t / 16000 / (ms / 1e3) for t, ms in zip(seen["T"][STP_WARMUP:], later)]
+    config = task.wav2vec2_for_ctc.config
+    flops = [stp_step_flops(config, STP_B, t) for t in seen["T"][STP_WARMUP:]]
+    mfu = [f / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16] for f, ms in zip(flops, later)]
+    out = {"phase": "stp_train", "B": STP_B, "compute_dtype": config.compute_dtype, "workers": stp_workers(),
+           "steps": len(step_ms), "warmup_steps": STP_WARMUP, "launches": counts,
+           "first_step_ms": step_ms[0], "step_ms_median": float(np.median(later)),
+           "step_ms_p10": float(np.percentile(later, 10)), "step_ms_p90": float(np.percentile(later, 90)),
+           "step_ms_min": min(later), "step_ms_max": max(later), "step_ms": step_ms,
+           "padded_T": seen["T"], "padded_T_seen": sorted(set(seen["T"])),
+           "audio_sec_per_sec_median": float(np.median(audio_rate)),
+           "first_batch_wait_ms": wait_ms[0], "data_wait_ms_median_after_first": float(np.median(wait_ms[1:])),
+           "data_wait_ms": wait_ms, "max_memory_allocated_gib": peak,
+           "model_flops_per_step_median": float(np.median(flops)),
+           "model_flops_share_of_bf16_peak_median": float(np.median(mfu)),
+           "first_loss": losses[0] if losses else None, "last_loss": losses[-1] if losses else None}
+    emit(out)
+    if len(step_ms) != STP_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"the STP fit ran {len(step_ms)} steps, losses {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"hand-written kernels launched on the STP path: {counts}")
+
+    batch, state = seen["batch"], trainer.state
+    for _ in range(2):
+        task.train_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STP_PROFILE_STEPS):
+        task.train_step(state, batch)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / STP_PROFILE_STEPS
+
+    def steps():
+        for _ in range(STP_PROFILE_STEPS):
+            task.train_step(state, batch)
+
+    def whole(events):
+        kinds = [stp_kind(e.name) for e in events]
+        return kinds.count("Adam") >= STP_PROFILE_STEPS and kinds.count("CTC") >= 2 * STP_PROFILE_STEPS
+
+    prof, _ = cuda_trace(steps, whole, "the STP train steps")
+    groups, top, launches = {}, [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        launches += e.count
+        us = e.self_device_time_total / STP_PROFILE_STEPS
+        groups[stp_kind(e.key)] = groups.get(stp_kind(e.key), 0.0) + us
+        top.append((us, e.count / STP_PROFILE_STEPS, e.key[:90]))
+    device_us = sum(groups.values())
+    top.sort(reverse=True)
+    if not device_us:
+        raise AssertionError("the CUDA-only trace of the STP steps recorded no device time")
+    t = int(batch["audio"].shape[1])
+    frames = config.feat_extract_output_length(t)
+    prof_out = {"phase": "stp_profile", "B": STP_B, "T": t, "frames": frames, "steps": STP_PROFILE_STEPS,
+                "step_wall_us_untraced": wall_us, "device_us_per_step": device_us,
+                "device_idle_share": 1.0 - device_us / wall_us, "device_kernels_per_step": launches / STP_PROFILE_STEPS,
+                "by_kind_us": groups, "model_flops": stp_step_flops(config, STP_B, t),
+                "model_flops_share_of_bf16_peak_untraced": stp_step_flops(config, STP_B, t) / (wall_us / 1e6)
+                / PEAK_FLOPS[torch.bfloat16],
+                "pos_conv_alone": pos_conv_ms(task, frames),
+                "top_kernels": [{"us": us, "per_step": n, "name": nm} for us, n, nm in top[:15]]}
+    emit(prof_out)
+    return {"train": out, "profile": prof_out}
+
+
+def phase_cli_stp(weights: str) -> dict:
+    """``run.main`` with ``lightning_datamodule=stp lightning_module=wav2vec2_for_stp
+    callbacks=stp_checkpoint logging=csv`` on the synthetic source (16
+    utterances: two steps an epoch at batch 8) and the base model through
+    the published from_pretrained config reading ``weights``: fit two epochs
+    (float32, as the published trainer runs) validating two batches an
+    epoch, then test("last") on four batch-1 utterances; then again with
+    max_epochs 3, which resumes at epoch 2.  The fit is timed; each test
+    batch is split into the eval step (synchronised) and the host decode +
+    CER.  The hand-written kernels' counts are read around each run."""
+    from vibravox_tpu_torch import run
+
+    timing = {"eval_step": [], "decode_cer": []}
+    marks: dict = {}
+    eval_step, eval_metrics, test = Wav2Vec2STPTask.eval_step, Wav2Vec2STPTask.eval_metrics, Trainer.test
+
+    def timed_eval_step(self, state, batch):
+        t0 = time.perf_counter()
+        out = eval_step(self, state, batch)
+        torch.cuda.synchronize()
+        timing["eval_step"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_metrics(self, outputs):
+        t0 = time.perf_counter()
+        out = eval_metrics(self, outputs)
+        timing["decode_cer"].append(time.perf_counter() - t0)
+        return out
+
+    def marked_test(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["fit_end"] = time.perf_counter()
+        for v in timing.values():
+            v.clear()
+        return test(self, *args, **kwargs)
+
+    def run_cli(run_dir, epochs):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = run.main([*stp_args(weights), "callbacks=stp_checkpoint", "logging=csv",
+                            "++lightning_datamodule.synthetic_size=16",
+                            f"++trainer.limit_val_batches={STP_CLI_VAL_BATCHES}",
+                            f"++trainer.limit_test_batches={STP_CLI_TEST_BATCHES}",
+                            f"++trainer.max_epochs={epochs}", f"++run_dir={run_dir}"])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        progress = json.loads((Path(run_dir) / "checkpoints" / "trainer_state.json").read_text())
+        return {"epochs": epochs, "fit_wall_s": marks["fit_end"] - t0, "test_wall_s": end - marks["fit_end"],
+                "test_s_per_batch": (end - marks["fit_end"]) / STP_CLI_TEST_BATCHES,
+                "eval_step_ms": [1e3 * s for s in timing["eval_step"]],
+                "decode_cer_ms": [1e3 * s for s in timing["decode_cer"]],
+                "launches": read_counts(), "trainer_state": progress, "metrics": metrics,
+                "last": (Path(run_dir) / "checkpoints" / "last" / "state.pt").exists()}
+
+    Wav2Vec2STPTask.eval_step, Wav2Vec2STPTask.eval_metrics, Trainer.test = timed_eval_step, timed_metrics, marked_test
+    try:
+        with tempfile.TemporaryDirectory(prefix="vibravox_stp_cli_") as run_dir:
+            first = run_cli(run_dir, 2)
+            resumed = run_cli(run_dir, 3)
+    finally:
+        Wav2Vec2STPTask.eval_step, Wav2Vec2STPTask.eval_metrics, Trainer.test = eval_step, eval_metrics, test
+    out = {"phase": "cli_stp", "B": STP_B, "steps_per_epoch": STP_CLI_EPOCH_STEPS,
+           "val_batches": STP_CLI_VAL_BATCHES, "test_batches": STP_CLI_TEST_BATCHES, "workers": stp_workers(),
+           "first": first, "resumed": resumed}
+    emit(out)
+    for r, progress in ((first, {"epoch": 1, "global_step": 4}), (resumed, {"epoch": 2, "global_step": 6})):
+        m = r["metrics"]
+        if set(m) != {"test/ctc_loss", "test/char_error_rate"} or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"the STP CLI's test metrics {m}")
+        if r["trainer_state"] != progress or not r["last"]:
+            raise AssertionError(f"the STP CLI's progress {r['trainer_state']}, last {r['last']}")
+        if any(r["launches"].values()):
+            raise AssertionError(f"hand-written kernels launched on the STP CLI: {r['launches']}")
+        if len(r["eval_step_ms"]) != STP_CLI_TEST_BATCHES:
+            raise AssertionError(f"timed test batches {r['eval_step_ms']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1716,8 +2120,13 @@ def main() -> int:
     phase_npz()
     cli = phase_cli()
     noisy = phase_cli_noisybwe()
+    phase_stp_parity()
+    with tempfile.TemporaryDirectory(prefix="vibravox_stp_weights_") as weights:
+        stp_weights(weights)
+        stp = phase_stp_train(weights)
+        cli_stp = phase_cli_stp(weights)
     emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                      evals, cli, noisy, pad_short))
+                      evals, cli, noisy, pad_short, stp, cli_stp))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1748,14 +2157,14 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                 evals, cli, noisy, pad_short) -> dict:
+                 evals, cli, noisy, pad_short, stp, cli_stp) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
     measured one by one with CUDA events.  ``launches`` is the count over
     this slice's main path, the CLI's first run (fit and test);
     ``launches_by_path`` has it per path, the timed fit of the train phase
-    included.  K1's serving numbers (per forward, float32 and bfloat16, 1 s
+    included, and the STP paths, which run none of the four kernels.  K1's serving numbers (per forward, float32 and bfloat16, 1 s
     bucket, batch 8) and its float32 eval numbers (per eval forward of the
     CLI's test batch, batch 1, and of the whole utterance, an extra shape)
     stay beside them, with K1's launch configuration at every timed shape;
@@ -1768,7 +2177,10 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
                 "cli_resumed_test": cli["resume"]["launches"]["test"][key],
                 "cli_noisybwe_fit": noisy["launches"]["fit"][key],
                 "cli_noisybwe_test": noisy["launches"]["test"][key],
-                "pad_short": pad_short["launches"][key]}
+                "pad_short": pad_short["launches"][key],
+                "stp_train": stp["train"]["launches"][key],
+                "cli_stp": cli_stp["first"]["launches"][key],
+                "cli_stp_resumed": cli_stp["resumed"]["launches"][key]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]

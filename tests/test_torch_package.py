@@ -1,7 +1,8 @@
 """PyTorch port: package boundary and device policy.
 
 The port must stand alone: no module of ``vibravox_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax or the JAX package.  Its entry points
+``chip_smoke.py`` imports JAX, flax, optax, the JAX package or
+``transformers`` (the GPU machine has none of them).  Its entry points
 run on the GPU unless asked for the CPU, and raise without a GPU."""
 
 import ast
@@ -16,7 +17,7 @@ from vibravox_tpu_torch.models.eben_generator import EBENGenerator
 from vibravox_tpu_torch.serving import EnhanceServer, StreamingEnhancer
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vibravox_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vibravox_tpu", "transformers"}
 
 
 def _imported_roots(path: Path):
@@ -142,6 +143,47 @@ def test_bwe_family_data_modules_without_gpu_raise(no_cuda):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(dataset_name_principal="synthetic") if make is BWEDataModule else make(dataset_name="synthetic")
         assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_stp_entry_points_without_gpu_raise(no_cuda, tmp_path):
+    """The STP task, its data module, the model factories and the CLI use
+    the GPU unless asked for the CPU, and raise without one."""
+    from vibravox_tpu_torch.core.optim import adam
+    from vibravox_tpu_torch.data.stp import STPDataModule
+    from vibravox_tpu_torch.models.wav2vec2 import (
+        save_pretrained,
+        wav2vec2_for_ctc_from_config,
+        wav2vec2_for_ctc_from_pretrained,
+    )
+    from vibravox_tpu_torch.run import main
+    from vibravox_tpu_torch.tasks.wav2vec2_stp import Wav2Vec2STPTask
+
+    model = wav2vec2_for_ctc_from_config(preset="tiny", device="cpu")
+    save_pretrained(model, str(tmp_path / "w2v"))
+    for make in (lambda: STPDataModule(dataset_name_principal="synthetic"),
+                 lambda: wav2vec2_for_ctc_from_config(preset="tiny"),
+                 lambda: wav2vec2_for_ctc_from_pretrained(str(tmp_path / "w2v")),
+                 lambda: Wav2Vec2STPTask(wav2vec2_for_ctc=model, optimizer=adam())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert STPDataModule(dataset_name_principal="synthetic", device="cpu").device == torch.device("cpu")
+    assert Wav2Vec2STPTask(wav2vec2_for_ctc=model, optimizer=adam(), device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["lightning_datamodule=stp", "lightning_module=wav2vec2_for_stp",
+              "lightning_datamodule.dataset_name_principal=synthetic",
+              f"lightning_module.wav2vec2_for_ctc.pretrained_model_name_or_path={tmp_path / 'w2v'}",
+              f"++run_dir={tmp_path / 'run'}"])
+
+
+def test_text_metrics_have_no_fallback():
+    """The CER and edit operations always run the native kernel; a failed
+    build raises (its Python DP is the tests' twin, not a fallback)."""
+    import inspect
+
+    from vibravox_tpu_torch.metrics import text
+
+    source = inspect.getsource(text)
+    assert "except" not in source and "os.environ" not in source
 
 
 def test_native_pipeline_has_no_switch_and_no_fallback():

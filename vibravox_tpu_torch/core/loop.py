@@ -35,6 +35,14 @@ def _as_float_logs(logs: Dict[str, Any]) -> Dict[str, float]:
     return {k: float(v) for k, v in logs.items()}
 
 
+def _split_batch(batch: Dict[str, Any], device: torch.device) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The batch's tensors, sent to ``device``, and its host-only fields
+    (the STP collate's ``phonemes_str`` list), kept on the host as the JAX
+    mesh's ``split_batch`` keeps them."""
+    arrays = {k: v.to(device, non_blocking=True) for k, v in batch.items() if isinstance(v, torch.Tensor)}
+    return arrays, {k: v for k, v in batch.items() if not isinstance(v, torch.Tensor)}
+
+
 def _check_mesh(mesh: Optional[Dict[str, Any]], device: torch.device) -> None:
     """Accepts the configs' ``{data: -1, model: 1}`` on one device; raises
     for a mesh that asks for more (``data: -1`` is every visible device)."""
@@ -209,7 +217,7 @@ class Trainer:
                     break
                 if self.profile_dir and self.global_step == 8:
                     profiler_trace = trace_window(self.profile_dir).__enter__()
-                batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+                batch, _ = _split_batch(batch, device)
                 t0 = time.perf_counter()
                 self.data_wait_seconds.append(t0 - t_wait)
                 timer.start()
@@ -223,8 +231,9 @@ class Trainer:
                     self._sync(device)
                     profiler_trace.__exit__(None, None, None)
                     profiler_trace = None
-                x = batch["audio_body_conducted"]
-                audio_seconds += x.shape[0] * x.shape[1] / task.sample_rate
+                x = batch.get("audio_body_conducted", batch.get("audio"))
+                if x is not None:
+                    audio_seconds += x.shape[0] * x.shape[1] / task.sample_rate
                 # guard scans ride on the logging cadence, where the logs are
                 # floated (host-synced) anyway
                 should_log = self.global_step % self.log_every_n_steps == 0
@@ -361,8 +370,10 @@ class Trainer:
             for i, batch in enumerate(loader):
                 if limit is not None and i >= limit:
                     break
-                batch = {k: v.to(task.device, non_blocking=True) for k, v in batch.items()}
+                batch, host = _split_batch(batch, task.device)
                 outputs = task.eval_step(self.state, batch)
+                if host:
+                    outputs["host"] = host
                 logs = outputs.pop("logs", {})
                 metrics = task.eval_metrics(outputs) if hasattr(task, "eval_metrics") else {}
                 for k, v in {**_as_float_logs(logs), **metrics}.items():
@@ -370,6 +381,10 @@ class Trainer:
                 count += 1
                 if i < self.num_audio_logs:
                     self._log_audio(task, outputs, stage, dl_name, i)
+                    if getattr(task, "last_decoded", None):
+                        pred, target = task.last_decoded
+                        self.logger.log_text(f"{stage}_{dl_name or 'main'}_{i}/decode",
+                                             f"pred: {pred}\ntarget: {target}", self._num_val_runs)
             if count:
                 for k, v in sums.items():
                     all_metrics[f"{stage}/{k}{suffix}"] = v / count

@@ -14,7 +14,7 @@ from typing import Callable, Iterable, Sequence
 
 import torch
 
-__all__ = ["adam", "adamw", "sgd"]
+__all__ = ["adam", "adamw", "sgd", "materialise", "step_counts_to_cpu"]
 
 OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
 
@@ -50,3 +50,27 @@ def adamw(
     return functools.partial(
         torch.optim.AdamW, lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay
     )
+
+
+def step_counts_to_cpu(optimizer: torch.optim.Optimizer) -> None:
+    """Puts the step counts of a loaded optimizer back on the CPU where it
+    keeps them (neither capturable nor fused).  ``load_state_dict`` leaves
+    them where the checkpoint was mapped, and a step count on the GPU costs
+    Adam two host syncs per parameter tensor per step."""
+    for group in optimizer.param_groups:
+        if group.get("capturable") or group.get("fused"):
+            continue
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if isinstance(state.get("step"), torch.Tensor):
+                state["step"] = state["step"].cpu()
+
+
+def materialise(opt: Callable) -> Callable[..., torch.optim.Optimizer]:
+    """A config's ``_partial_`` optimizer (``partial(adam, lr=...)``) called
+    once, as the JAX task does, into a factory over parameters; a factory
+    (a partial of a ``torch.optim.Optimizer`` class) is kept."""
+    if isinstance(opt, functools.partial) and not (
+            isinstance(opt.func, type) and issubclass(opt.func, torch.optim.Optimizer)):
+        return opt()
+    return opt

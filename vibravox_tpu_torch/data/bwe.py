@@ -89,9 +89,11 @@ class _EpochBatches(torch.utils.data.Sampler):
             yield [(int(i), self.epoch, b) for i in chunk]
 
 
-def eval_keys(n: int) -> List[List[Tuple[int, int, int]]]:
-    """The eval loaders' batches: item i alone, as batch i of epoch 0."""
-    return [[(i, 0, i)] for i in range(n)]
+def eval_keys(n: int, batch_size: int = 1) -> List[List[Tuple[int, int, int]]]:
+    """The eval loaders' batches, in order: batch b of epoch 0 holds items
+    b * batch_size onwards (at batch 1, item i alone as batch i)."""
+    return [[(i, 0, b) for i in range(b * batch_size, min((b + 1) * batch_size, n))]
+            for b in range(-(-n // batch_size))]
 
 
 class Keyed(torch.utils.data.Dataset):
@@ -163,6 +165,24 @@ class _StreamBatches(torch.utils.data.IterableDataset):
                 yield self.collate.keyed([self.source.decode(row) for row in rows], (self.epoch, b), None)
 
 
+def make_loader(source, collate, batch_size: int, train: bool, num_workers: int, seed: int,
+                pin: bool) -> torch.utils.data.DataLoader:
+    """A map-style source through ``Keyed``: in training the epoch-keyed
+    shuffle (``drop_last``) and persistent workers, in evaluation its items
+    in order; a source without a length through ``_StreamBatches``.  The
+    collate needs ``keyed(items, (epoch, batch), indices)``."""
+    if not _has_len(source):
+        # the workers take a fresh copy of the stream's epoch at each pass
+        return torch.utils.data.DataLoader(
+            _StreamBatches(source, collate, batch_size, shuffle=train, drop_last=train, seed=seed),
+            batch_size=None, num_workers=num_workers, pin_memory=pin)
+    keys = _EpochBatches(len(source), batch_size, seed) if train else eval_keys(len(source), batch_size)
+    return torch.utils.data.DataLoader(
+        Keyed(source), batch_sampler=keys, num_workers=num_workers,
+        persistent_workers=train and num_workers > 0, collate_fn=KeyedCollate(collate),
+        pin_memory=pin)
+
+
 class BWEDataModule:
     """``device``: where the batches go, ``None`` for the GPU (raises
     without one) or ``"cpu"``; it decides whether host batches are pinned.
@@ -219,18 +239,8 @@ class BWEDataModule:
                           augmentation=None if deterministic else self.data_augmentation, seed=self.seed)
 
     def _loader(self, source, collate, batch_size: int, train: bool) -> torch.utils.data.DataLoader:
-        pin = self.device.type == "cuda"
-        if not _has_len(source):
-            # the workers take a fresh copy of the stream's epoch at each pass
-            return torch.utils.data.DataLoader(
-                _StreamBatches(source, collate, batch_size, shuffle=train, drop_last=train,
-                               seed=self.seed),
-                batch_size=None, num_workers=self.num_workers, pin_memory=pin)
-        keys = _EpochBatches(len(source), batch_size, self.seed) if train else eval_keys(len(source))
-        return torch.utils.data.DataLoader(
-            Keyed(source), batch_sampler=keys, num_workers=self.num_workers,
-            persistent_workers=train and self.num_workers > 0, collate_fn=KeyedCollate(collate),
-            pin_memory=pin)
+        return make_loader(source, collate, batch_size, train, self.num_workers, self.seed,
+                           pin=self.device.type == "cuda")
 
     def train_dataloader(self) -> torch.utils.data.DataLoader:
         """Its ``batch_sampler.set_epoch(epoch)`` (a stream's

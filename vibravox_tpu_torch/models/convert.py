@@ -10,6 +10,12 @@ torch layout, so loading JAX weights is a relayout:
 * transposed-conv ``kernel_v`` is already (in, out, k) and is kept as it is
 * the PQMF buffers are designed, not stored in the params.
 
+wav2vec2 (``wav2vec2_state_dict_from_jax``): Dense ``kernel`` (in, out) ->
+``weight`` (out, in), LayerNorm / GroupNorm ``scale`` -> ``weight``, and the
+positional conv's ``conv_v`` (k, in / groups, out) / ``conv_g`` (k,) ->
+``original1`` (out, in / groups, k) / ``original0`` (1, 1, k), under HF's
+``Wav2Vec2ForCTC`` names.
+
 The params are given as numpy arrays (``jax.device_get`` of the tree).
 """
 
@@ -26,6 +32,7 @@ __all__ = [
     "eben_generator_params_from_jax",
     "eben_discriminator_params_from_jax",
     "eben_train_state_from_jax",
+    "wav2vec2_state_dict_from_jax",
 ]
 
 
@@ -108,3 +115,54 @@ def eben_train_state_from_jax(state: Any, m: int = 4, n: int = 32) -> Dict[str, 
         "step": int(np.asarray(state.step)),
         "atomic_norms_ema": torch.tensor(np.asarray(state.atomic_norms_ema, dtype=np.float32)),
     }
+
+
+def wav2vec2_state_dict_from_jax(params: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
+    """Flax ``Wav2Vec2ForCTCModule`` params (with or without the outer
+    ``"params"`` key) -> state dict of
+    ``vibravox_tpu_torch.models.wav2vec2.Wav2Vec2ForCTC`` of the same
+    ``config``; the port's copy of ``wav2vec2_params_to_torch``."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_lin(prefix: str, node: Mapping[str, Any]) -> None:
+        sd[f"{prefix}.weight"] = np.asarray(node["kernel"]).T
+        sd[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+    def put_ln(prefix: str, node: Mapping[str, Any]) -> None:
+        sd[f"{prefix}.weight"] = np.asarray(node["scale"])
+        sd[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+    fe = p["feature_encoder"]
+    for i in range(len(config.conv_dim)):
+        base = f"wav2vec2.feature_extractor.conv_layers.{i}"
+        sd[f"{base}.conv.weight"] = np.transpose(np.asarray(fe[f"conv_{i}"]["kernel"]), (2, 1, 0))
+        if config.conv_bias:
+            sd[f"{base}.conv.bias"] = np.asarray(fe[f"conv_{i}"]["bias"])
+        if config.feat_extract_norm == "layer":
+            put_ln(f"{base}.layer_norm", fe[f"layer_norm_{i}"])
+    if config.feat_extract_norm == "group":
+        put_ln("wav2vec2.feature_extractor.conv_layers.0.layer_norm", fe["group_norm"])
+
+    put_ln("wav2vec2.feature_projection.layer_norm", p["feat_proj_layer_norm"])
+    put_lin("wav2vec2.feature_projection.projection", p["feat_projection"])
+    if "masked_spec_embed" in p:
+        sd["wav2vec2.masked_spec_embed"] = np.asarray(p["masked_spec_embed"])
+
+    pce = p["pos_conv_embed"]
+    base = "wav2vec2.encoder.pos_conv_embed.conv"
+    sd[f"{base}.parametrizations.weight.original0"] = np.asarray(pce["conv_g"]).reshape(1, 1, -1)
+    sd[f"{base}.parametrizations.weight.original1"] = np.transpose(np.asarray(pce["conv_v"]), (2, 1, 0))
+    sd[f"{base}.bias"] = np.asarray(pce["conv_bias"])
+    put_ln("wav2vec2.encoder.layer_norm", p["encoder_layer_norm"])
+
+    for i in range(config.num_hidden_layers):
+        b, layer = f"wav2vec2.encoder.layers.{i}", p[f"layer_{i}"]
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put_lin(f"{b}.attention.{name}", layer[name])
+        put_ln(f"{b}.layer_norm", layer["layer_norm"])
+        put_lin(f"{b}.feed_forward.intermediate_dense", layer["intermediate_dense"])
+        put_lin(f"{b}.feed_forward.output_dense", layer["output_dense"])
+        put_ln(f"{b}.final_layer_norm", layer["final_layer_norm"])
+    put_lin("lm_head", p["lm_head"])
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}

@@ -16,9 +16,13 @@ metrics.  A second run in the same ``run_dir`` resumes from its ``last``
 checkpoint.
 
 Every ``_target_`` under ``vibravox_tpu.`` is rewritten to the port's
-``vibravox_tpu_torch.`` module of the same name.  One top-level key is the
-port's own: ``device`` (``++device=cpu``), given to every constructor of the
-port that takes one; absent, the run uses the GPU and raises without one.
+``vibravox_tpu_torch.`` module of the same name, and the STP config's
+``transformers.Wav2Vec2FeatureExtractor`` to the port's own extractor (the
+port does not import ``transformers``).  A task with a ``tokenizer`` left
+``None`` gets the data module's, as in the repository's ``run.py``.  One
+top-level key is the port's own: ``device`` (``++device=cpu``), given to
+every constructor of the port that takes one; absent, the run uses the GPU
+and raises without one.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ from typing import Any
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 _JAX_PREFIX = "vibravox_tpu."
 _PORT_PREFIX = "vibravox_tpu_torch."
+# targets outside the JAX package that the port replaces with its own
+_FOREIGN_TARGETS = {
+    "transformers.Wav2Vec2FeatureExtractor": "vibravox_tpu_torch.data.features.Wav2Vec2FeatureExtractor",
+}
 
 
 def setup_environment() -> None:
@@ -42,9 +50,10 @@ def setup_environment() -> None:
 
 
 def port_targets(node: Any, device: str) -> None:
-    """In place: ``vibravox_tpu.X`` targets become ``vibravox_tpu_torch.X``,
-    and each of the port's constructors that takes a ``device`` gets
-    ``device`` unless its node sets one.  A target the port lacks is left
+    """In place: ``vibravox_tpu.X`` targets become ``vibravox_tpu_torch.X``
+    (and those of ``_FOREIGN_TARGETS`` the port's counterparts), and each
+    of the port's constructors that takes a ``device`` gets ``device``
+    unless its node sets one.  A target the port lacks is left
     for ``instantiate`` to report."""
     from vibravox_tpu_torch.core.config import _locate
 
@@ -53,6 +62,8 @@ def port_targets(node: Any, device: str) -> None:
         if isinstance(target, str):
             if target.startswith(_JAX_PREFIX):
                 target = node["_target_"] = _PORT_PREFIX + target[len(_JAX_PREFIX):]
+            elif target in _FOREIGN_TARGETS:
+                target = node["_target_"] = _FOREIGN_TARGETS[target]
             if target.startswith(_PORT_PREFIX) and "device" not in node:
                 try:
                     takes_device = "device" in inspect.signature(_locate(target)).parameters
@@ -94,6 +105,10 @@ def main(argv=None) -> dict:
         torch.manual_seed(int(cfg.get("seed", 42)))
         datamodule = instantiate(cfg.lightning_datamodule)
         task = instantiate(cfg.lightning_module)
+        # a task that decodes text shares the data module's tokenizer (the
+        # reference reads it through trainer.datamodule)
+        if getattr(task, "tokenizer", False) is None and hasattr(datamodule, "tokenizer"):
+            task.tokenizer = datamodule.tokenizer
 
         callbacks = cfg.get("callbacks") or {}
         checkpoint = instantiate(callbacks["checkpoint"]) if "checkpoint" in callbacks else None

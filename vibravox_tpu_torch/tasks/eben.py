@@ -36,12 +36,12 @@ GPU it runs K1 (six calls a forward) and K3 (the STFT loss), no K2 or K4.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from vibravox_tpu_torch.core.optim import materialise, step_counts_to_cpu
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
@@ -85,34 +85,10 @@ class EBENTrainState:
         for optimizer, key in ((self.generator_optimizer, "generator_optimizer"),
                                (self.discriminator_optimizer, "discriminator_optimizer")):
             optimizer.load_state_dict(sd[key])
-            _step_counts_to_cpu(optimizer)
+            step_counts_to_cpu(optimizer)
         self.step = int(sd["step"])
         self.atomic_norms_ema = sd["atomic_norms_ema"].to(self.atomic_norms_ema.device, torch.float32)
         self.gate.set_state(sd["gate"].cpu())
-
-
-def _step_counts_to_cpu(optimizer: torch.optim.Optimizer) -> None:
-    """Puts the step counts of a loaded optimizer back on the CPU where it
-    keeps them (neither capturable nor fused).  ``load_state_dict`` leaves
-    them where the checkpoint was mapped, and a step count on the GPU costs
-    Adam two host syncs per parameter tensor per step."""
-    for group in optimizer.param_groups:
-        if group.get("capturable") or group.get("fused"):
-            continue
-        for p in group["params"]:
-            state = optimizer.state.get(p, {})
-            if isinstance(state.get("step"), torch.Tensor):
-                state["step"] = state["step"].cpu()
-
-
-def _materialise(opt: Callable) -> Callable[..., torch.optim.Optimizer]:
-    """A config's ``_partial_`` optimizer (``partial(adam, lr=...)``) called
-    once, as the JAX task does, into a factory over parameters; a factory
-    (a partial of a ``torch.optim.Optimizer`` class) is kept."""
-    if isinstance(opt, functools.partial) and not (
-            isinstance(opt.func, type) and issubclass(opt.func, torch.optim.Optimizer)):
-        return opt()
-    return opt
 
 
 def _grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -164,8 +140,8 @@ class EBENTask:
         if self.accumulate_grad_batches != 1:
             raise NotImplementedError(
                 "gradient accumulation is not ported yet: accumulate_grad_batches must be 1")
-        self.generator_optimizer = _materialise(self.generator_optimizer)
-        self.discriminator_optimizer = _materialise(self.discriminator_optimizer)
+        self.generator_optimizer = materialise(self.generator_optimizer)
+        self.discriminator_optimizer = materialise(self.discriminator_optimizer)
         self.device = resolve_device(self.device)
         self.generator.to(self.device)
         self.discriminator.to(self.device)
