@@ -117,7 +117,29 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     test("last"), then a resumed third epoch: finite ``test/ctc_loss`` and
     ``test/char_error_rate``, the fit's wall, the test seconds per batch
     split into the eval step and the host decode + CER;
-22. the ``kernels`` line (all four kernels), then the result line.
+22. spkv_parity: the SPKV slice in float32 (IEEE): the full-width ECAPA2
+    and ECAPA-TDNN at its default width (seed 0, BatchNorms randomised) on
+    2 x 48000 samples of synthetic speech, card against CPU (log-mel
+    features within 1e-3 on the bins whose power is at least 1e-6 of their
+    frame's largest, embeddings within 1e-4 of scale, one K3 launch a
+    forward); ECAPA2's bf16 trunk within 0.08 of scale of its float32; K3
+    against its plain version at fft 512 / hop 160 / win 400 at (32, 48000)
+    and at a ragged batch-1 trial, with kernel, plain, library and bound
+    times of whole wrapper calls, in turns;
+23. spkv_embed: bench.py's spkv regime, the full-width ECAPA2 on batches of
+    32 x 3 s, 3 warm-up and 20 synchronised batches, bf16 trunk and
+    float32: ms a batch, audio-s/s, peak memory, model FLOPs and their
+    share of the peak, K3 once a batch and K1, K2, K4 never; a CUDA-only
+    trace of 5 batches by kernel kind and the idle share;
+24. cli_spkv: ``run.main`` with ``lightning_datamodule=spkv
+    lightning_module=ecapa2 logging=csv`` on the synthetic source (120
+    trials at batch 1, one loader worker) with the full-width embedder
+    from a seed-0 state dict (``checkpoint_path``), then again with
+    ``same_gender`` over the pairs of the port's ``gen_pairs_for_spkv``:
+    finite EER, threshold, minDCF and distance statistics, K3 twice a trial
+    and K1, K2, K4 never, the test's seconds per trial split into the two
+    embedder forwards and the host's scoring;
+25. the ``kernels`` line (all four kernels), then the result line.
 
 Phases 3 and 7 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
@@ -127,6 +149,7 @@ hand-written kernels that its run made (``cuda_trace``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -153,6 +176,8 @@ from vibravox_tpu_torch.device import strict_float32
 from vibravox_tpu_torch.losses.gan import FeatureMatchingLoss, HingeLoss
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
+from vibravox_tpu_torch.models.ecapa2 import ECAPA2, ecapa2_from_config
+from vibravox_tpu_torch.models.ecapa_tdnn import ECAPATDNN
 from vibravox_tpu_torch.models.wav2vec2 import save_pretrained, wav2vec2_for_ctc_from_config
 from vibravox_tpu_torch.ops import _build
 from vibravox_tpu_torch.ops import augment
@@ -175,6 +200,7 @@ from vibravox_tpu_torch.ops.ctc import ctc_loss
 from vibravox_tpu_torch.ops.resample import KaiserResampler, bank_nbytes, design_band, design_kernel
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.serving import EnhanceServer
+from vibravox_tpu_torch.tasks.ecapa2_spkv import SPKVTask
 from vibravox_tpu_torch.tasks.eben import EBENTask
 from vibravox_tpu_torch.tasks.wav2vec2_stp import Wav2Vec2STPTask
 
@@ -2090,6 +2116,343 @@ def phase_cli_stp(weights: str) -> dict:
     return out
 
 
+SPKV_B, SPKV_T = 32, 48000  # bench.py's spkv regime: b32, 3 s at 16 kHz
+SPKV_WARMUP, SPKV_BATCHES, SPKV_PROFILE_BATCHES = 3, 20, 5
+LEAD_LAUNCHES = 64
+MEL = (512, 160, 400)  # the log-mel front end's fft, hop, win (ops/mel.py)
+MEL_LOG_TOL, SPKV_EMB_TOL, SPKV_BF16_TOL = 1e-3, 1e-4, 0.08
+SPKV_CLI_ARGS = ("lightning_datamodule=spkv", "lightning_module=ecapa2", "logging=csv",
+                 "lightning_datamodule.dataset_name=synthetic")
+SPKV_CLI_TRIALS = 120  # the synthetic test split: 24 utterances, 4 speakers, 60 target + 60 non-target
+
+
+def randomise_batch_norms(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every BatchNorm's affine parameters and running statistics drawn
+    from ``seed``, so the comparisons exercise them."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.2)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    return model
+
+
+def ecapa2_flops(config, batch: int, samples: int) -> float:
+    """Model FLOPs of one ECAPA2 forward, counted from the config's conv and
+    dense shapes (2 per multiply-add); the front end's FFT and mel product
+    are not counted."""
+    frames = 1 + samples // MEL[1]
+    freq, cin = config.n_mels, config.stem_channels
+    flops = 2 * 9 * cin * frames * freq  # the stem
+    for ch, n_blocks, stride in config.lfe_stages:
+        for bi in range(n_blocks):
+            s = stride if bi == 0 else 1
+            freq = (freq - 1) // s + 1
+            flops += 2 * 9 * (cin + ch) * ch * frames * freq  # conv1, conv2
+            flops += 2 * 2 * freq * 128  # fwSE
+            if cin != ch or s != 1:
+                flops += 2 * cin * ch * frames * freq  # shortcut
+            cin = ch
+    c, width = config.gfe_channels, config.gfe_channels // config.res2_scale
+    flops += 2 * freq * cin * c * frames  # gfe_proj
+    flops += 2 * 2 * c * c * frames + 2 * (config.res2_scale - 1) * 3 * width * width * frames  # conv_in / out, res2
+    flops += 2 * 2 * c * 128  # SE
+    flops += 2 * (3 * c * 128 + 128 * c) * frames  # attention
+    flops += 2 * 2 * c * config.embed_dim
+    return float(flops * batch)
+
+
+def spkv_kind(name: str) -> str:
+    low = name.lower()
+    if "framed_dft_magnitude_kernel" in name:
+        return "K3 framed_dft_magnitude"
+    if any(s in low for s in ("nchwtonhwc", "nhwctonchw", "transpose")):
+        return "NCHW<->NHWC transposes"
+    if any(s in low for s in ("conv", "fprop", "implicit", "cudnn", "xmma")):
+        return "cuDNN convolutions"
+    if any(s in low for s in ("gemm", "nvjet", "cutlass", "cublas", "sm90_")):
+        return "GEMMs"
+    if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low:
+        return "BatchNorm"
+    if "reduce" in low:
+        return "reductions (means, variances, sums)"
+    return "elementwise (ReLU, casts, gating, copies)"
+
+
+def mel_err(feats: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |difference| of log-mel features on the bins whose power is at
+    least 1e-6 of their frame's largest."""
+    power = ref.exp()
+    loud = power >= 1e-6 * power.amax(dim=-1, keepdim=True)
+    return float((feats.cpu() - ref).abs()[loud].max())
+
+
+def embedder_parity(name: str, make, audio: torch.Tensor) -> tuple:
+    """One embedder (seed 0, BatchNorms randomised) on the card against the
+    same weights on the CPU, float32: its log-mel features and embeddings;
+    one K3 launch per card forward.  Returns the row and the card's model."""
+    torch.manual_seed(0)
+    cpu = randomise_batch_norms(make("cpu"), 1)
+    card = make("cuda")
+    card.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        ref_feats, ref = cpu.features(audio), cpu(audio)
+        feats = card.features(audio.cuda())
+        before = framed_dft_magnitude.launches
+        out = card(audio.cuda())
+        torch.cuda.synchronize()
+        launches = framed_dft_magnitude.launches - before
+    row = {"embedder": name, "B": audio.shape[0], "T": audio.shape[1],
+           "params": sum(p.numel() for p in cpu.parameters()),
+           "log_mel_max_abs_err": mel_err(feats, ref_feats), "log_mel_tol": MEL_LOG_TOL,
+           "embedding_err_over_scale": rel_err(out.cpu(), ref), "embedding_tol": SPKV_EMB_TOL,
+           "k3_launches_per_forward": launches}
+    emit({"phase": "spkv_parity", **row})
+    if not (row["log_mel_max_abs_err"] <= MEL_LOG_TOL and row["embedding_err_over_scale"] <= SPKV_EMB_TOL):
+        raise AssertionError(f"{name} on the card disagrees with the CPU: {row}")
+    if launches != 1 or out.shape != (audio.shape[0], ref.shape[1]):
+        raise AssertionError(f"{name}: {launches} K3 launches a forward, output {tuple(out.shape)}")
+    return row, card
+
+
+def k3_mel_row(b: int, t: int, gen: torch.Generator) -> dict:
+    """K3 against its plain version at the front end's fft / hop / win, with
+    kernel, plain, library (``torch.stft(...).abs()``) and bound times of
+    whole wrapper calls, in turns (the median of each)."""
+    fft, hop, win = MEL
+    x = (torch.randn(b, t, generator=gen) * 0.1).cuda()
+    mag = framed_dft_magnitude(x, fft, hop, win)
+    ref = plain_framed_dft_magnitude(x, fft, hop, win)
+    torch.cuda.synchronize()
+    window = hann_window(win, device="cuda")
+    times = {k: [] for k in ("kernel", "plain", "library")}
+    for _ in range(3):
+        times["kernel"].append(cuda_ms(lambda: framed_dft_magnitude(x, fft, hop, win), iters=20))
+        times["plain"].append(cuda_ms(lambda: plain_framed_dft_magnitude(x, fft, hop, win), iters=10))
+        times["library"].append(cuda_ms(lambda: torch.stft(
+            x, fft, hop_length=hop, win_length=win, window=window, center=True, pad_mode="reflect",
+            return_complex=True).abs(), iters=20))
+    ops_ms, bytes_ms = dft_bound_ms(b, t, fft, hop, win, backward=False)
+    bound_ms, bound_by = bound(ops_ms, bytes_ms)
+    row = {"fft": fft, "hop": hop, "win": win, "B": b, "T": t, "frames": 1 + t // hop, "bins": fft // 2 + 1,
+           "k3_err_over_scale": rel_err(mag, ref), "k3_tol": K3_TOL,
+           "kernel_ms": float(np.median(times["kernel"])), "plain_ms": float(np.median(times["plain"])),
+           "library_ms": float(np.median(times["library"])), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "times_ms": times}
+    emit({"phase": "spkv_parity", **row})
+    if not (mag.shape == ref.shape and row["k3_err_over_scale"] <= K3_TOL):
+        raise AssertionError(f"K3 disagrees with its plain version at the log-mel shape: {row}")
+    return row
+
+
+def phase_spkv_parity() -> dict:
+    """float32, cuDNN's convolutions in IEEE float32 (the embedders set it
+    themselves).  The full-width ECAPA2 and ECAPA-TDNN at their default
+    widths (seed 0, BatchNorms randomised) on 2 x 48000 samples of the
+    synthetic speech, card against CPU: log-mel features within 1e-3 (log
+    units) on the bins whose power is at least 1e-6 of their frame's
+    largest, embeddings within 1e-4 of scale; ECAPA2's bf16 trunk on the
+    card within 0.08 of scale of its float32 (the JAX package's bar); then
+    K3 against its plain version at fft 512 / hop 160 / win 400 at (32,
+    48000) and at one ragged batch-1 trial, with times."""
+    source = SyntheticVibravoxSource(n_utterances=2, split="spkv-test", with_metadata=True)
+    audio = torch.stack([torch.from_numpy(source[i]["audio_body_conducted"][:SPKV_T]) for i in range(2)])
+    ecapa2, card = embedder_parity("ECAPA2 full", lambda d: ECAPA2(device=d), audio)
+    tdnn, _ = embedder_parity("ECAPATDNN default", lambda d: ECAPATDNN(device=d), audio)
+    bf16 = ECAPA2(dataclasses.replace(card.config, compute_dtype="bfloat16"), device="cuda")
+    bf16.load_state_dict(card.state_dict())
+    with torch.no_grad():
+        e32, e16 = card(audio.cuda()), bf16(audio.cuda())
+    bf16_row = {"embedder": "ECAPA2 full, bf16 trunk against float32 on the card",
+                "embedding_err_over_scale": rel_err(e16, e32), "embedding_tol": SPKV_BF16_TOL,
+                "dtype": str(e16.dtype)}
+    emit({"phase": "spkv_parity", **bf16_row})
+    if not (bf16_row["embedding_err_over_scale"] <= SPKV_BF16_TOL and e16.dtype == torch.float32):
+        raise AssertionError(f"the bf16 trunk is off its float32: {bf16_row}")
+    gen = torch.Generator().manual_seed(11)
+    ragged = len(source[1]["audio_body_conducted"])
+    k3 = [k3_mel_row(SPKV_B, SPKV_T, gen), k3_mel_row(1, ragged, gen)]
+    return {"embedders": [ecapa2, tdnn, bf16_row], "k3": k3}
+
+
+def phase_spkv_embed() -> dict:
+    """bench.py's spkv regime on the port: the full-width ECAPA2 (seed 0)
+    on batches of 32 x 3 s of noise, 3 warm-up batches then 20 timed ones,
+    each synchronised, with the bf16 trunk (bench.py's default) and in
+    float32: ms a batch, audio-s/s, peak memory, model FLOPs and their
+    share of the type's peak, the K1-K4 launches (K3 once a batch); then
+    the untraced wall of 5 batches and their device time by kernel kind
+    from a CUDA-only trace, and the idle share."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((SPKV_B, SPKV_T)).astype(np.float32)).cuda()
+    for dtype in ("bfloat16", "float32"):
+        torch.manual_seed(0)
+        model = ecapa2_from_config(compute_dtype=dtype, device="cuda").eval()
+        flops = ecapa2_flops(model.config, SPKV_B, SPKV_T)
+        peak = PEAK_FLOPS[getattr(torch, dtype)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        with torch.no_grad():
+            reset_counts()
+            for i in range(SPKV_WARMUP + SPKV_BATCHES):
+                t0 = time.perf_counter()
+                emb = model(x)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            counts = read_counts()
+            first_ms = ms[0]
+            ms = ms[SPKV_WARMUP:]
+            t0 = time.perf_counter()
+            for _ in range(SPKV_PROFILE_BATCHES):
+                model(x)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / SPKV_PROFILE_BATCHES
+
+            lead = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+            def batches():
+                # a trace can lose its first launches, and K3 is a forward's
+                # first kernel: lead with launches of a kind the model never
+                # runs, left out of the sums below
+                for _ in range(LEAD_LAUNCHES):
+                    lead.bitwise_xor_(1)
+                for _ in range(SPKV_PROFILE_BATCHES):
+                    model(x)
+
+            def whole(events):
+                return sum("framed_dft_magnitude_kernel" in e.name for e in events) >= SPKV_PROFILE_BATCHES
+
+            prof, _ = cuda_trace(batches, whole, f"the {dtype} ECAPA2 batches")
+        groups, top, launches = {}, [], 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or "xor" in e.key.lower():
+                continue
+            launches += e.count
+            us = e.self_device_time_total / SPKV_PROFILE_BATCHES
+            groups[spkv_kind(e.key)] = groups.get(spkv_kind(e.key), 0.0) + us
+            top.append((us, e.count / SPKV_PROFILE_BATCHES, e.key[:90]))
+        device_us = sum(groups.values())
+        top.sort(reverse=True)
+        med = float(np.median(ms))
+        row = {"phase": "spkv_embed", "compute_dtype": dtype, "B": SPKV_B, "T": SPKV_T,
+               "warmup_batches": SPKV_WARMUP, "batches": SPKV_BATCHES, "first_batch_ms": first_ms,
+               "ms_per_batch_median": med, "ms_p10": float(np.percentile(ms, 10)),
+               "ms_p90": float(np.percentile(ms, 90)), "ms": ms,
+               "audio_sec_per_sec_median": SPKV_B * SPKV_T / 16000 / (med / 1e3),
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "model_flops_per_batch": flops, "model_flops_share_of_peak_median": flops / (med / 1e3) / peak,
+               "peak_flops_of_type": peak, "launches": counts,
+               "profile_batches": SPKV_PROFILE_BATCHES, "batch_wall_us_untraced": wall_us,
+               "device_us_per_batch": device_us, "device_idle_share": 1.0 - device_us / wall_us,
+               "device_kernels_per_batch": launches / SPKV_PROFILE_BATCHES, "by_kind_us": groups,
+               "top_kernels": [{"us": us, "per_batch": n, "name": nm} for us, n, nm in top[:15]],
+               "embedding_finite": bool(torch.isfinite(emb).all())}
+        emit(row)
+        want = {"K1": 0, "K2": 0, "K3": SPKV_WARMUP + SPKV_BATCHES, "K4": 0}
+        if counts != want or not row["embedding_finite"] or emb.shape != (SPKV_B, model.config.embed_dim):
+            raise AssertionError(f"the {dtype} embedder's launches {counts} (want {want}), output {tuple(emb.shape)}")
+        if not device_us:
+            raise AssertionError("the CUDA-only trace of the ECAPA2 batches recorded no device time")
+        out[dtype] = row
+        del model
+    return out
+
+
+def phase_cli_spkv() -> dict:
+    """``run.main`` with ``lightning_datamodule=spkv lightning_module=ecapa2
+    logging=csv``, the synthetic source, the published batch 1 and loader
+    worker, and the full-width ECAPA2 from a seed-0 state dict written to a
+    temporary file (``++lightning_module.checkpoint_path``): 24 test
+    utterances of 4 speakers, 120 trials (60 target).  Twice: the published
+    ``mixed_gender`` with generated pairs, then ``same_gender`` over the
+    pickle of the port's ``gen_pairs_for_spkv``.  Each run's K1-K4 counts
+    are reset just before it and read just after (K3 twice a trial, the
+    rest 0); the test's seconds per trial are split into the two embedder
+    forwards (synchronised) and the host's scoring, the rest being the
+    loader (pairs, the source, the collate) and Python."""
+    from vibravox_tpu_torch import run
+    from vibravox_tpu_torch.scripts.gen_pairs_for_spkv import main as gen_pairs
+
+    timing = {"eval_step": [], "scoring": []}
+    marks: dict = {}
+    eval_step, batch_end, epoch_end = SPKVTask.eval_step, SPKVTask.on_eval_batch_end, SPKVTask.on_eval_epoch_end
+    test = Trainer.test
+
+    def timed(fn, key, sync):
+        def wrapper(self, *args):
+            t0 = time.perf_counter()
+            result = fn(self, *args)
+            if sync:
+                torch.cuda.synchronize()
+            timing[key].append(time.perf_counter() - t0)
+            return result
+        return wrapper
+
+    def marked_test(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["fit_end"] = time.perf_counter()
+        for v in timing.values():
+            v.clear()
+        return test(self, *args, **kwargs)
+
+    def run_cli(run_dir, extra):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = run.main([*SPKV_CLI_ARGS, f"++lightning_module.checkpoint_path={weights}", *extra,
+                            f"++run_dir={run_dir}"])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        counts = read_counts()
+        trials = len(timing["eval_step"])
+        test_s = end - marks["fit_end"]
+        forwards_s, scoring_s = sum(timing["eval_step"]), sum(timing["scoring"])
+        return {"fit_wall_s": marks["fit_end"] - t0, "test_wall_s": test_s, "trials": trials,
+                "test_s_per_trial": test_s / max(trials, 1),
+                "embedder_forwards_s_per_trial": forwards_s / max(trials, 1),
+                "host_scoring_s_per_trial": scoring_s / max(trials, 1),
+                "rest_s_per_trial": (test_s - forwards_s - scoring_s) / max(trials, 1),
+                "eval_step_ms_first_5": [1e3 * s for s in timing["eval_step"][:5]],
+                "eval_step_ms_median": 1e3 * float(np.median(timing["eval_step"])) if trials else None,
+                "launches": counts, "metrics": metrics}
+
+    SPKVTask.eval_step = timed(eval_step, "eval_step", True)
+    SPKVTask.on_eval_batch_end = timed(batch_end, "scoring", False)
+    SPKVTask.on_eval_epoch_end = timed(epoch_end, "scoring", False)
+    Trainer.test = marked_test
+    try:
+        with tempfile.TemporaryDirectory(prefix="vibravox_spkv_cli_") as tmp:
+            torch.manual_seed(0)
+            weights = str(Path(tmp) / "ecapa2_full_seed0.pt")
+            torch.save(ECAPA2(device="cpu").state_dict(), weights)
+            gen_pairs(["--dataset", "synthetic", "--output-dir", str(Path(tmp) / "pairs")])
+            mixed = run_cli(str(Path(tmp) / "mixed"), [])
+            same = run_cli(str(Path(tmp) / "same"), ["lightning_datamodule.gender_policy=same_gender",
+                                                      f"lightning_datamodule.pairs_file={Path(tmp) / 'pairs' / 'same_gender.pkl'}"])
+    finally:
+        SPKVTask.eval_step, SPKVTask.on_eval_batch_end, SPKVTask.on_eval_epoch_end = eval_step, batch_end, epoch_end
+        Trainer.test = test
+    out = {"phase": "cli_spkv", "trials": SPKV_CLI_TRIALS, "workers": 1, "mixed_gender": mixed,
+           "same_gender": same}
+    emit(out)
+    keys = {"test/equal_error_rate", "test/eer_threshold", "test/minimum_dcf",
+            *(f"test/{d}_{s}" for d in ("cosine", "euclidean")
+              for s in ("mean_same", "std_same", "mean_different", "std_different"))}
+    for r in (mixed, same):
+        m = r["metrics"]
+        if set(m) != keys or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"the SPKV CLI's test metrics {m}")
+        want = {"K1": 0, "K2": 0, "K3": 2 * SPKV_CLI_TRIALS, "K4": 0}
+        if r["trials"] != SPKV_CLI_TRIALS or r["launches"] != want:
+            raise AssertionError(f"the SPKV CLI ran {r['trials']} trials, launches {r['launches']} (want {want})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2125,8 +2488,9 @@ def main() -> int:
         stp_weights(weights)
         stp = phase_stp_train(weights)
         cli_stp = phase_cli_stp(weights)
+    spkv = {"parity": phase_spkv_parity(), "embed": phase_spkv_embed(), "cli": phase_cli_spkv()}
     emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                      evals, cli, noisy, pad_short, stp, cli_stp))
+                      evals, cli, noisy, pad_short, stp, cli_stp, spkv))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2157,14 +2521,17 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                 evals, cli, noisy, pad_short, stp, cli_stp) -> dict:
+                 evals, cli, noisy, pad_short, stp, cli_stp, spkv) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
     measured one by one with CUDA events.  ``launches`` is the count over
     this slice's main path, the CLI's first run (fit and test);
     ``launches_by_path`` has it per path, the timed fit of the train phase
-    included, and the STP paths, which run none of the four kernels.  K1's serving numbers (per forward, float32 and bfloat16, 1 s
+    included, the STP paths, which run none of the four kernels, and the
+    SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
+    end's fft-512 times and bounds, per call at the b32 regime's shape and
+    at a batch-1 trial).  K1's serving numbers (per forward, float32 and bfloat16, 1 s
     bucket, batch 8) and its float32 eval numbers (per eval forward of the
     CLI's test batch, batch 1, and of the whole utterance, an extra shape)
     stay beside them, with K1's launch configuration at every timed shape;
@@ -2180,7 +2547,10 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
                 "pad_short": pad_short["launches"][key],
                 "stp_train": stp["train"]["launches"][key],
                 "cli_stp": cli_stp["first"]["launches"][key],
-                "cli_stp_resumed": cli_stp["resumed"]["launches"][key]}
+                "cli_stp_resumed": cli_stp["resumed"]["launches"][key],
+                "spkv_embed": sum(r["launches"][key] for r in spkv["embed"].values()),
+                "cli_spkv": spkv["cli"]["mixed_gender"]["launches"][key],
+                "cli_spkv_same_gender": spkv["cli"]["same_gender"]["launches"][key]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]
@@ -2266,13 +2636,19 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
          "replaces": "vibravox_tpu/ops/pallas_stft.py:101",
          "launches": main_path["K3"], "launches_by_path": by_path("K3"),
          "launches_per_step": per_step["K3"],
-         "max_abs_err": max(r["k3_err_over_scale"] for r in dft_rows + evals["k3"]),
-         "max_err_over_tol": max(r["k3_err_over_scale"] / r["k3_tol"] for r in dft_rows + evals["k3"]),
+         "max_abs_err": max(r["k3_err_over_scale"] for r in dft_rows + evals["k3"] + spkv["parity"]["k3"]),
+         "max_err_over_tol": max(r["k3_err_over_scale"] / r["k3_tol"]
+                                 for r in dft_rows + evals["k3"] + spkv["parity"]["k3"]),
          "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "per": "per train step: 3 resolutions x 2 signals, B 32, T 39904, float32",
          "traced_us_per_step": kinds.get("K3 framed_dft_magnitude"), "card": smi, "detail": k3,
          "eval": k3_eval,
+         "spkv": {"per": "per call at fft 512, hop 160, win 400: the b32 regime (32 x 48000) and a batch-1 trial",
+                  "calls": spkv["parity"]["k3"],
+                  "traced_us_per_embed_batch": {dt: r["by_kind_us"].get("K3 framed_dft_magnitude")
+                                                for dt, r in spkv["embed"].items()},
+                  "launches_per_embed_batch": 1, "launches_per_cli_trial": 2},
          "errors": "max_abs_err is the error over the largest magnitude"},
         {"name": "framed_dft_magnitude_backward", "route": "cuda",
          "source": "vibravox_tpu_torch/ops/csrc/framed_dft.cu",

@@ -269,3 +269,55 @@ def test_framed_dft_autograd_runs_k3_and_k4(cuda):
     assert (framed_dft_magnitude.launches, framed_dft_backward.launches) == (before[0] + 1, before[1] + 1)
     ref = plain_framed_dft_backward(x.detach(), torch.ones(2, 81, 257, device=cuda), 512, 50, 240)
     assert _rel_err(x.grad, ref) <= 2e-4
+
+
+# the log-mel front end of the speaker embedders: fft 512, hop 160, win 400,
+# at bench's b32 regime (3 s) and at a ragged batch-1 trial (2-6 s)
+MEL_DFT_CASES = [(32, 48000), (1, 37123)]
+
+
+@pytest.mark.parametrize("b,t", MEL_DFT_CASES)
+def test_framed_dft_magnitude_matches_plain_at_the_log_mel_shapes(b, t, cuda):
+    x = torch.randn(b, t, generator=torch.Generator().manual_seed(t)).to(cuda)
+    before = framed_dft_magnitude.launches
+    mag = framed_dft_magnitude(x, 512, 160, 400)
+    ref = plain_framed_dft_magnitude(x, 512, 160, 400)
+    torch.cuda.synchronize()
+    assert framed_dft_magnitude.launches == before + 1
+    assert mag.shape == ref.shape == (b, 1 + t // 160, 257)
+    assert _rel_err(mag, ref) <= 1e-5
+
+
+def test_speaker_embedders_on_card_match_cpu_and_run_k3(cuda):
+    """The tiny ECAPA2 and a narrow ECAPA-TDNN: one K3 launch a forward;
+    log-mel features within 1e-3 (log units) of the CPU's on bins whose
+    power is at least 1e-6 of their frame's largest, float32 embeddings
+    within 1e-4 of scale, the bf16 trunk within 0.08 of scale of float32."""
+    from vibravox_tpu_torch.models.ecapa2 import ecapa2_from_config
+    from vibravox_tpu_torch.models.ecapa_tdnn import ECAPATDNN
+    from vibravox_tpu_torch.ops.mel import log_mel_spectrogram
+
+    x = torch.randn(2, 20000, generator=torch.Generator().manual_seed(11))
+    feats_cpu = log_mel_spectrogram(x)
+    before = framed_dft_magnitude.launches
+    feats = log_mel_spectrogram(x.to(cuda)).cpu()
+    assert framed_dft_magnitude.launches == before + 1
+    power = feats_cpu.exp()
+    loud = power >= 1e-6 * power.amax(dim=-1, keepdim=True)
+    assert (feats - feats_cpu).abs()[loud].max() <= 1e-3
+    torch.manual_seed(0)
+    for make in (lambda d: ecapa2_from_config("tiny", device=d), lambda d: ECAPATDNN(channels=32, scale=4, device=d)):
+        cpu_model = make("cpu")
+        card_model = make(cuda)
+        card_model.load_state_dict(cpu_model.state_dict())
+        with torch.no_grad():
+            ref = cpu_model(x)
+            before = framed_dft_magnitude.launches
+            out = card_model(x.to(cuda)).cpu()
+        assert framed_dft_magnitude.launches == before + 1
+        assert _rel_err(out, ref) <= 1e-4
+    bf16 = ecapa2_from_config("tiny", device=cuda, compute_dtype="bfloat16")
+    f32 = ecapa2_from_config("tiny", device=cuda)
+    bf16.load_state_dict(f32.state_dict())
+    with torch.no_grad():
+        assert _rel_err(bf16(x.to(cuda)), f32(x.to(cuda))) <= 0.08

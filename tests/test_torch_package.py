@@ -175,6 +175,41 @@ def test_stp_entry_points_without_gpu_raise(no_cuda, tmp_path):
               f"++run_dir={tmp_path / 'run'}"])
 
 
+def test_spkv_entry_points_without_gpu_raise(no_cuda, tmp_path):
+    """The embedders, the log-mel front end on a CUDA request, the SPKV task,
+    its data module and the CLI use the GPU unless asked for the CPU, and
+    raise without one."""
+    from vibravox_tpu_torch.data.spkv import SPKVDataModule
+    from vibravox_tpu_torch.models.ecapa2 import ECAPA2, ecapa2_from_config
+    from vibravox_tpu_torch.models.ecapa_tdnn import ECAPATDNN
+    from vibravox_tpu_torch.ops.mel import log_mel_spectrogram
+    from vibravox_tpu_torch.run import main
+    from vibravox_tpu_torch.tasks.ecapa2_spkv import SPKVTask
+
+    embedder = ecapa2_from_config("tiny", device="cpu")
+    for make in (ECAPA2, lambda: ECAPA2(device="cuda"), lambda: ecapa2_from_config("tiny"),
+                 lambda: ECAPATDNN(channels=32, scale=4), lambda: SPKVDataModule(dataset_name="synthetic"),
+                 lambda: SPKVTask(embedder=embedder)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # the front end runs K3 or its plain version by the tensor's device, and
+    # nothing else: no fallback
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        log_mel_spectrogram(torch.zeros(1, 1600, device="meta"))
+    import inspect
+
+    from vibravox_tpu_torch.ops import mel
+
+    assert "except" not in inspect.getsource(mel)
+    assert SPKVTask(embedder=embedder, device="cpu").device == torch.device("cpu")
+    assert SPKVDataModule(dataset_name="synthetic", device="cpu").device == torch.device("cpu")
+    run_dir = tmp_path / "run"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["lightning_datamodule=spkv", "lightning_module=ecapa2", "logging=csv",
+              "lightning_datamodule.dataset_name=synthetic", f"++run_dir={run_dir}"])
+    assert not run_dir.exists()
+
+
 def test_text_metrics_have_no_fallback():
     """The CER and edit operations always run the native kernel; a failed
     build raises (its Python DP is the tests' twin, not a fallback)."""

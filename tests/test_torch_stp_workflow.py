@@ -270,3 +270,28 @@ def test_bwe_config_targets_are_unchanged():
     after = list(targets(cfg))
     assert after == [t.replace("vibravox_tpu.", "vibravox_tpu_torch.", 1) if t.startswith("vibravox_tpu.") else t
                      for t in before]
+
+
+def test_eval_hooks_leave_the_test_metrics_unchanged():
+    """The trainer's optional eval hooks are SPKV's; the STP task defines
+    none, and its test metrics stay the batch means of its CTC loss and
+    CER, with the host's phoneme strings reaching ``eval_metrics``."""
+    from vibravox_tpu_torch.data.phonemes import load_phoneme_tokenizer
+
+    task = _task()
+    task.tokenizer = load_phoneme_tokenizer()
+    assert not any(hasattr(task, hook) for hook in ("prepare_eval_batch", "on_eval_batch_end", "on_eval_epoch_end"))
+    dm = STPDataModule(dataset_name_principal="synthetic", batch_size=2, num_workers=0, synthetic_size=2,
+                       device="cpu")
+    trainer = Trainer(limit_test_batches=2)
+    metrics = trainer.test(task, dm)
+    sums = {}
+    for batch in dm.test_dataloader():
+        arrays, host = _split_batch(batch, torch.device("cpu"))
+        outputs = task.eval_step(trainer.state, arrays)
+        outputs["host"] = host
+        logs = {k: float(v) for k, v in outputs.pop("logs").items()}
+        for k, v in {**logs, **task.eval_metrics(outputs)}.items():
+            sums[k] = sums.get(k, 0.0) + v
+    assert metrics == {f"test/{k}": v / 2 for k, v in sums.items()}
+    assert set(metrics) == {"test/ctc_loss", "test/char_error_rate"}

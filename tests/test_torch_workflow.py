@@ -440,3 +440,25 @@ def test_overfit_batches_and_precision():
     assert len(val) == 2
     with pytest.raises(ValueError, match="unsupported precision"):
         Trainer(precision="64").fit(task, _dm(0))
+
+
+EVAL_HOOKS = ("prepare_eval_batch", "on_eval_batch_end", "on_eval_epoch_end")
+
+
+def test_eval_hooks_leave_the_test_metrics_unchanged():
+    """The trainer's optional eval hooks are SPKV's; EBEN defines none, and
+    its test metrics stay the batch means of its eval logs and SE metrics."""
+    from vibravox_tpu_torch.core.loop import _split_batch
+
+    task = _task()
+    assert not any(hasattr(task, hook) for hook in EVAL_HOOKS)
+    dm = _dm(0)
+    trainer = Trainer(limit_test_batches=2)
+    metrics = trainer.test(task, dm)
+    sums = {}
+    for batch in dm.test_dataloader():
+        outputs = task.eval_step(trainer.state, _split_batch(batch, torch.device("cpu"))[0])
+        logs = {k: float(v) for k, v in outputs.pop("logs").items()}
+        for k, v in {**logs, **task.eval_metrics(outputs)}.items():
+            sums[k] = sums.get(k, 0.0) + v
+    assert metrics == {f"test/{k}": v / 2 for k, v in sums.items()} and "test/torchmetrics_stoi" in metrics

@@ -37,8 +37,8 @@ def _as_float_logs(logs: Dict[str, Any]) -> Dict[str, float]:
 
 def _split_batch(batch: Dict[str, Any], device: torch.device) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The batch's tensors, sent to ``device``, and its host-only fields
-    (the STP collate's ``phonemes_str`` list), kept on the host as the JAX
-    mesh's ``split_batch`` keeps them."""
+    (the STP collate's ``phonemes_str`` list, SPKV's speaker ids), kept on
+    the host as the JAX mesh's ``split_batch`` keeps them."""
     arrays = {k: v.to(device, non_blocking=True) for k, v in batch.items() if isinstance(v, torch.Tensor)}
     return arrays, {k: v for k, v in batch.items() if not isinstance(v, torch.Tensor)}
 
@@ -356,6 +356,12 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _evaluate(self, task, loaders, stage: str) -> Dict[str, float]:
+        """Each loader's mean logs and ``eval_metrics``, under ``stage/``.
+        Optional task hooks, as the JAX trainer calls them:
+        ``prepare_eval_batch(batch)`` before the batch is split into device
+        tensors and host fields, ``on_eval_batch_end(outputs)`` after each
+        step, and ``on_eval_epoch_end()`` after a loader, whose metrics join
+        the loader's."""
         limit = self.limit_val_batches if stage == "validation" else self.limit_test_batches
         if limit == 0:  # Lightning's limit_*_batches=0: no pass, no loader workers
             return {}
@@ -370,6 +376,8 @@ class Trainer:
             for i, batch in enumerate(loader):
                 if limit is not None and i >= limit:
                     break
+                if hasattr(task, "prepare_eval_batch"):
+                    batch = task.prepare_eval_batch(batch)
                 batch, host = _split_batch(batch, task.device)
                 outputs = task.eval_step(self.state, batch)
                 if host:
@@ -378,6 +386,8 @@ class Trainer:
                 metrics = task.eval_metrics(outputs) if hasattr(task, "eval_metrics") else {}
                 for k, v in {**_as_float_logs(logs), **metrics}.items():
                     sums[k] = sums.get(k, 0.0) + v
+                if hasattr(task, "on_eval_batch_end"):
+                    task.on_eval_batch_end(outputs)
                 count += 1
                 if i < self.num_audio_logs:
                     self._log_audio(task, outputs, stage, dl_name, i)
@@ -388,6 +398,9 @@ class Trainer:
             if count:
                 for k, v in sums.items():
                     all_metrics[f"{stage}/{k}{suffix}"] = v / count
+            if count and hasattr(task, "on_eval_epoch_end"):
+                for k, v in task.on_eval_epoch_end().items():
+                    all_metrics[f"{stage}/{k}{suffix}"] = float(v)
         if all_metrics:
             self._log(all_metrics)
         return all_metrics

@@ -1,1 +1,1 @@
-"""Speech-enhancement metrics of the port."""
+"""Metrics of the port: speech enhancement, text and speaker verification."""

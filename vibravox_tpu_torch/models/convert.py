@@ -16,6 +16,15 @@ positional conv's ``conv_v`` (k, in / groups, out) / ``conv_g`` (k,) ->
 ``original1`` (out, in / groups, k) / ``original0`` (1, 1, k), under HF's
 ``Wav2Vec2ForCTC`` names.
 
+Speaker embedders (``ecapa2_state_dict_from_jax``,
+``ecapa_tdnn_state_dict_from_jax``): the variables ``{"params",
+"batch_stats"}``; conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out,
+in, kh, kw) and (k, in, out) -> (out, in, k), Dense ``kernel`` (in, out)
+-> ``weight`` (out, in), BatchNorm ``scale`` / ``bias`` and the stats
+``mean`` / ``var`` -> ``weight`` / ``bias`` / ``running_mean`` /
+``running_var`` (``num_batches_tracked`` 0).  Every leaf is consumed, and
+one left over raises.
+
 The params are given as numpy arrays (``jax.device_get`` of the tree).
 """
 
@@ -33,6 +42,8 @@ __all__ = [
     "eben_discriminator_params_from_jax",
     "eben_train_state_from_jax",
     "wav2vec2_state_dict_from_jax",
+    "ecapa2_state_dict_from_jax",
+    "ecapa_tdnn_state_dict_from_jax",
 ]
 
 
@@ -166,3 +177,106 @@ def wav2vec2_state_dict_from_jax(params: Mapping[str, Any], config) -> Dict[str,
         put_ln(f"{b}.final_layer_norm", layer["final_layer_norm"])
     put_lin("lm_head", p["lm_head"])
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+class _Leaves:
+    """The leaves of a JAX variables tree by path, handed out once each."""
+
+    def __init__(self, variables: Mapping[str, Any]):
+        self.leaves: Dict[tuple, np.ndarray] = {}
+
+        def walk(node, path):
+            if isinstance(node, Mapping):
+                for k, v in node.items():
+                    walk(v, path + (k,))
+            else:
+                self.leaves[path] = np.asarray(node)
+
+        walk(variables, ())
+        self.sd: Dict[str, np.ndarray] = {}
+
+    def pop(self, *path: str) -> np.ndarray:
+        return self.leaves.pop(path)
+
+    def has(self, *path: str) -> bool:
+        return path in self.leaves
+
+    def conv(self, src: tuple, dst: str) -> None:
+        """A 1-D or 2-D conv: channels-last kernel -> (out, in, *taps)."""
+        kernel = self.pop("params", *src, "kernel")
+        self.sd[f"{dst}.weight"] = np.transpose(kernel, (kernel.ndim - 1, kernel.ndim - 2, *range(kernel.ndim - 2)))
+        self.sd[f"{dst}.bias"] = self.pop("params", *src, "bias")
+
+    def dense(self, src: tuple, dst: str) -> None:
+        self.sd[f"{dst}.weight"] = self.pop("params", *src, "kernel").T
+        self.sd[f"{dst}.bias"] = self.pop("params", *src, "bias")
+
+    def batch_norm(self, src: tuple, dst: str) -> None:
+        self.sd[f"{dst}.weight"] = self.pop("params", *src, "scale")
+        self.sd[f"{dst}.bias"] = self.pop("params", *src, "bias")
+        self.sd[f"{dst}.running_mean"] = self.pop("batch_stats", *src, "mean")
+        self.sd[f"{dst}.running_var"] = self.pop("batch_stats", *src, "var")
+        self.sd[f"{dst}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    def state_dict(self, what: str) -> Dict[str, torch.Tensor]:
+        if self.leaves:
+            raise ValueError(f"unconsumed JAX {what} leaves: {sorted('/'.join(k) for k in self.leaves)[:30]}")
+        return {k: torch.from_numpy(v.copy()) for k, v in self.sd.items()}
+
+
+def ecapa2_state_dict_from_jax(variables: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
+    """JAX ``ECAPA2`` variables (``{"params", "batch_stats"}``, numpy
+    leaves) -> state dict of ``vibravox_tpu_torch.models.ecapa2.ECAPA2`` of
+    the same ``config``, in the key layout of the JAX package's
+    ``ecapa2_params_from_torchscript``, whose inverse this is."""
+    t = _Leaves(variables)
+    t.conv(("stem",), "stem")
+    t.batch_norm(("stem_bn",), "stem_bn")
+    for si, (_, n_blocks, _) in enumerate(config.lfe_stages):
+        for bi in range(n_blocks):
+            src, dst = f"stage{si}_block{bi}", f"stage{si}.block{bi}"
+            for name in ("conv1", "conv2"):
+                t.conv((src, name), f"{dst}.{name}")
+            for name in ("bn1", "bn2"):
+                t.batch_norm((src, name), f"{dst}.{name}")
+            t.dense((src, "fwse", "fc1"), f"{dst}.fwse.fc1")
+            t.dense((src, "fwse", "fc2"), f"{dst}.fwse.fc2")
+            if t.has("params", src, "shortcut", "kernel"):
+                t.conv((src, "shortcut"), f"{dst}.shortcut")
+    t.conv(("gfe_proj",), "gfe_proj")
+    t.batch_norm(("gfe_bn",), "gfe_bn")
+    for name in ("conv_in", "conv_out"):
+        t.conv(("gfe_block", name), f"gfe_block.{name}")
+    for name in ("bn_in", "bn_out"):
+        t.batch_norm(("gfe_block", name), f"gfe_block.{name}")
+    for name in ("se_fc1", "se_fc2"):
+        t.dense(("gfe_block", name), f"gfe_block.{name}")
+    for i in range(1, config.res2_scale):
+        t.conv(("gfe_block", f"res2_conv_{i}"), f"gfe_block.res2_convs.{i}")
+    t.conv(("pooling", "att_conv1"), "pooling.att_conv1")
+    t.conv(("pooling", "att_conv2"), "pooling.att_conv2")
+    t.batch_norm(("pool_bn",), "pool_bn")
+    t.dense(("embedding",), "embedding")
+    return t.state_dict("ECAPA2")
+
+
+def ecapa_tdnn_state_dict_from_jax(variables: Mapping[str, Any], scale: int = 8) -> Dict[str, torch.Tensor]:
+    """JAX ``ECAPATDNN`` variables -> state dict of
+    ``vibravox_tpu_torch.models.ecapa_tdnn.ECAPATDNN`` with the same
+    ``scale``; the module names are the flax names."""
+    t = _Leaves(variables)
+    t.conv(("conv_stem",), "conv_stem")
+    t.batch_norm(("bn_stem",), "bn_stem")
+    for block in ("block_1", "block_2", "block_3"):
+        convs = ["conv_in", "conv_out"] + [f"conv_{i}" for i in range(1, scale)]
+        for name in convs:
+            t.conv((block, name), f"{block}.{name}")
+            t.batch_norm((block, name.replace("conv", "bn")), f"{block}.{name.replace('conv', 'bn')}")
+        t.dense((block, "se", "fc1"), f"{block}.se.fc1")
+        t.dense((block, "se", "fc2"), f"{block}.se.fc2")
+    t.conv(("mfa_conv",), "mfa_conv")
+    t.conv(("pooling", "attn_1"), "pooling.attn_1")
+    t.conv(("pooling", "attn_2"), "pooling.attn_2")
+    t.batch_norm(("bn_pool",), "bn_pool")
+    t.dense(("embedding",), "embedding")
+    return t.state_dict("ECAPA-TDNN")
