@@ -139,7 +139,31 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     finite EER, threshold, minDCF and distance statistics, K3 twice a trial
     and K1, K2, K4 never, the test's seconds per trial split into the two
     embedder forwards and the host's scoring;
-25. the ``kernels`` line (all four kernels), then the result line.
+25. mimi_parity: the regressive-Mimi slice (no hand-written kernel on its
+    path) in float32 (IEEE): the published ``MimiConfig()`` at full width
+    (seed 0) on b2 x 2 s of synthetic speech, card against CPU: latents
+    within 1e-4 of scale, the codes' agreement by stage with every flip a
+    near tie (the two codes' float64 distances to the CPU's residual within
+    1e-4 relative), the decode of the CPU's codes and ``decode_latent`` on
+    the rows whose codes all agree within 1e-3 of scale; the bf16 codec
+    within 0.1 of scale of its float32;
+26. mimi_train: bench.py's mimi regime, ``RegressiveMimiTask`` on the
+    full-width bf16 codec, batches of 32 x 2 s, 3 warm-up and 20
+    synchronised steps: step ms (median, p10-p90), audio-s/s, peak memory,
+    FLOPs over the bf16 peak, the loss falling on the fixed batch, the
+    decoder side, quantizer and frozen copy bit-equal after the steps, no
+    K1-K4 launch; a CUDA-only trace of 5 steps by kernel kind and the idle
+    share;
+27. codec: bench.py's codec regime, ``encode_to_latent`` + ``decode_latent``
+    of 32 x 2 s in bf16, with the same figures;
+28. cli_mimi: ``run.main`` with ``lightning_datamodule=bwe
+    lightning_module=regressive_mimi sample_rate=24000
+    lightning_datamodule.batch_size=16 logging=csv callbacks=bwe_checkpoint``
+    on 32 synthetic utterances with the ``light`` augmentation: fit two
+    epochs, test("last") (finite STOI and SI-SDR), a resumed third epoch;
+    the fit's wall and the test's seconds per batch split into the eval
+    step and the host SE metrics;
+29. the ``kernels`` line (all four kernels), then the result line.
 
 Phases 3 and 7 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
@@ -149,6 +173,7 @@ hand-written kernels that its run made (``cuda_trace``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -160,9 +185,11 @@ import tempfile
 import time
 import tracemalloc
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vibravox_tpu_torch.core.loop import Trainer
 from vibravox_tpu_torch.core.optim import adam, sgd
@@ -176,6 +203,7 @@ from vibravox_tpu_torch.device import strict_float32
 from vibravox_tpu_torch.losses.gan import FeatureMatchingLoss, HingeLoss
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
+from vibravox_tpu_torch.models.mimi.mimi import ENCODER_SIDE, Mimi
 from vibravox_tpu_torch.models.ecapa2 import ECAPA2, ecapa2_from_config
 from vibravox_tpu_torch.models.ecapa_tdnn import ECAPATDNN
 from vibravox_tpu_torch.models.wav2vec2 import save_pretrained, wav2vec2_for_ctc_from_config
@@ -202,6 +230,7 @@ from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.serving import EnhanceServer
 from vibravox_tpu_torch.tasks.ecapa2_spkv import SPKVTask
 from vibravox_tpu_torch.tasks.eben import EBENTask
+from vibravox_tpu_torch.tasks.regressive_mimi import RegressiveMimiTask
 from vibravox_tpu_torch.tasks.wav2vec2_stp import Wav2Vec2STPTask
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
@@ -268,6 +297,114 @@ def cuda_trace(run, whole, what: str):
             return prof, events
         emit({"phase": "trace_retry", "trace": what, "attempt": attempt, "cuda_kernels": len(events)})
     raise AssertionError(f"no trace of {what} recorded all its kernels in {TRACE_ATTEMPTS} attempts")
+
+
+def kernel_kind(name: str) -> str:
+    """The kind of a CUDA kernel, from its name, for the profiles' sums."""
+    low = name.lower()
+    if any(k in name for k in K1_KERNELS):
+        return "K1 fused_residual"
+    if any(s in name for s in ("unit_forward_kernel", "unit_backward_kernel", "reduce_partials_kernel")):
+        return "K2 fused_residual_bwd"
+    if "framed_dft_magnitude_kernel" in name:
+        return "K3 framed_dft_magnitude"
+    if "framed_dft_backward" in name:  # both passes
+        return "K4 framed_dft_backward"
+    if "ctc" in low:
+        return "CTC"
+    if any(s in low for s in ("flash", "fmha", "attention", "efficient")):
+        return "attention"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "Adam"
+    if any(s in low for s in ("nchwtonhwc", "nhwctonchw", "transpose")):
+        return "NCHW<->NHWC transposes"
+    if any(s in low for s in ("dgrad", "wgrad")) or ("conv" in low and "bwd" in low):
+        return "conv backward"
+    if any(s in low for s in ("conv", "fprop", "implicit", "cudnn")):
+        return "conv forward"
+    if any(s in low for s in ("gemm", "nvjet", "cutlass", "cublas", "xmma", "sm90_")):
+        return "GEMMs"
+    if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low:
+        return "BatchNorm"
+    if "reflection" in low:
+        return "reflection pad"
+    if "elu" in low:
+        return "activations (ELU, GELU, ReLU)"
+    if "reduce" in low or "norm" in low:
+        return "norms and reductions"
+    return "other elementwise (casts, pads, adds, copies)"
+
+
+LEAD_LAUNCHES = 64
+
+
+def device_profile(run_one, calls: int, what: str, whole=None) -> dict:
+    """Where a call of ``run_one`` spends its time (the caller warms it up
+    first): the untraced wall of ``calls`` calls run back to back, then the
+    device time of as many more by ``kernel_kind`` from a CUDA-only trace,
+    and the device's idle share, all per call.  A trace can lose its first
+    launches, so the traced calls are led by LEAD_LAUNCHES launches of a
+    kind no path runs, left out of the sums, and the trace is taken again
+    until one of those is recorded and ``whole(events)``, if given, holds."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run_one()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / calls
+    lead = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def traced():
+        for _ in range(LEAD_LAUNCHES):
+            lead.bitwise_xor_(1)
+        for _ in range(calls):
+            run_one()
+
+    def recorded(events):
+        return any("xor" in e.name.lower() for e in events) and (whole is None or whole(events))
+
+    prof, _ = cuda_trace(traced, recorded, what)
+    groups, top, launches = {}, [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or "xor" in e.key.lower():
+            continue
+        launches += e.count
+        us = e.self_device_time_total / calls
+        groups[kernel_kind(e.key)] = groups.get(kernel_kind(e.key), 0.0) + us
+        top.append((us, e.count / calls, e.key[:160]))
+    device_us = sum(groups.values())
+    if not device_us:
+        raise AssertionError(f"the CUDA-only trace of {what} recorded no device time")
+    top.sort(reverse=True)
+    return {"calls": calls, "wall_us_untraced": wall_us, "device_us": device_us,
+            "device_idle_share": 1.0 - device_us / wall_us, "device_kernels": launches / calls,
+            "by_kind_us": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"us": us, "per_call": n, "name": nm} for us, n, nm in top[:15]]}
+
+
+def timed_calls(run_one, n: int) -> list:
+    """ms of each of ``n`` calls of ``run_one``, each synchronised."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run_one()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def spread(ms: list, warmup: int, audio_s: float, flops: float, dtype=torch.bfloat16) -> dict:
+    """The first call, then the median, p10 and p90 of the calls after
+    ``warmup``; audio-s/s and the FLOPs' share of ``dtype``'s peak at the
+    median."""
+    later = ms[warmup:]
+    med = float(np.median(later))
+    return {"first_ms": ms[0], "ms_median": med, "ms_p10": float(np.percentile(later, 10)),
+            "ms_p90": float(np.percentile(later, 90)), "ms": ms, "audio_sec_per_sec_median": audio_s / (med / 1e3),
+            "flops": flops, "peak_flops_of_type": PEAK_FLOPS[dtype],
+            "flops_share_of_peak_median": flops / (med / 1e3) / PEAK_FLOPS[dtype]}
 
 
 def stack_bound_ms(b: int, c: int, t: int, dtype: torch.dtype):
@@ -470,12 +607,8 @@ def phase_serve(compute_dtype) -> int:
 
 
 def phase_profile() -> None:
-    """Where a batched float32 forward's time goes at the serving bucket: the
-    wall time of forwards run back to back with no tracing, the device time
-    of the same forwards by kernel kind from a CUDA-only torch.profiler trace
-    (no host tracing to slow the host), and the device's idle share."""
-    from torch.autograd import DeviceType
-
+    """Where a batched float32 forward's time goes at the serving bucket
+    (``device_profile`` of 20 forwards)."""
     torch.manual_seed(0)
     model = EBENGenerator(m=4, n=32, p=2)
     x = torch.randn(BATCH, model.valid_length(16000), 1, device="cuda") * 0.1
@@ -483,47 +616,10 @@ def phase_profile() -> None:
     with torch.inference_mode():
         for _ in range(3):
             model(x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_fwd):
-            model(x)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-
-        def forwards():
-            for _ in range(n_fwd):
-                model(x)
-
         # float32 K1 is one launch a call, six calls a forward
-        prof, _ = cuda_trace(forwards, lambda events: sum(
-            any(k in e.name for k in K1_KERNELS) for e in events) == 6 * n_fwd, "the serving forwards")
-    groups: dict = {}
-    top = []
-    launches = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        launches += e.count
-        us = e.self_device_time_total / n_fwd
-        name = e.key
-        kind = ("K1 fused_residual" if any(k in name for k in K1_KERNELS)
-                else "reflection pad" if "reflection" in name.lower()
-                else "conv (cuDNN/GEMM)" if any(s in name.lower() for s in
-                                                ("conv", "gemm", "xmma", "cudnn", "sm90"))
-                else "other")
-        groups[kind] = groups.get(kind, 0.0) + us
-        top.append((us, e.count // n_fwd, name[:90]))
-    device_us = sum(groups.values())
-    top.sort(reverse=True)
-    if not device_us:
-        raise AssertionError("the CUDA-only trace recorded no device time")
-    emit({"phase": "profile", "B": BATCH, "T": int(x.shape[1]), "dtype": "float32",
-          "forwards": n_fwd, "forward_wall_us_untraced": wall_us / n_fwd,
-          "device_us_per_forward": device_us,
-          "device_idle_share": 1.0 - device_us / (wall_us / n_fwd),
-          "device_kernels_per_forward": launches / n_fwd,
-          "by_kind_us": groups,
-          "top_kernels": [{"us": us, "per_forward": n, "name": nm} for us, n, nm in top[:10]]})
+        prof = device_profile(lambda: model(x), n_fwd, "the serving forwards", lambda events: sum(
+            any(k in e.name for k in K1_KERNELS) for e in events) == 6 * n_fwd)
+    emit({"phase": "profile", "B": BATCH, "T": int(x.shape[1]), "dtype": "float32", "per": "forward", **prof})
 
 
 # ---------------------------------------------------------------------------
@@ -912,24 +1008,9 @@ TRAIN_KERNEL_LAUNCHES = {"K1 fused_residual": 12, "K2 fused_residual_bwd": 6 * l
                          "K3 framed_dft_magnitude": 6, "K4 framed_dft_backward": 12}
 
 
-def train_kind(name: str) -> str:
-    low = name.lower()
-    return ("K1 fused_residual" if any(k in name for k in K1_KERNELS)
-            else "K2 fused_residual_bwd" if any(s in name for s in (
-                "unit_forward_kernel", "unit_backward_kernel", "reduce_partials_kernel"))
-            else "K3 framed_dft_magnitude" if "framed_dft_magnitude_kernel" in name
-            else "K4 framed_dft_backward" if "framed_dft_backward" in name  # both passes
-            else "cuDNN conv / GEMM" if any(s in low for s in ("conv", "gemm", "xmma", "cudnn", "sm90"))
-            else "other")
-
-
 def phase_train_profile() -> dict:
-    """Where a train step's time goes (full task, batch 32, bf16): the wall
-    of PROFILE_STEPS steps run back to back with no tracing on one device
-    batch, the device time of as many more by kernel kind from a CUDA-only
-    torch.profiler trace, and the device's idle share."""
-    from torch.autograd import DeviceType
-
+    """Where a train step's time goes (full task, batch 32, bf16):
+    ``device_profile`` of PROFILE_STEPS steps on one device batch."""
     torch.manual_seed(0)
     task = make_task("cuda", small=False, optimizer=adam(3e-4, betas=(0.5, 0.9)),
                      compute_dtype="bfloat16")
@@ -939,45 +1020,15 @@ def phase_train_profile() -> dict:
     batch = {"audio_body_conducted": (ref * 0.5).cuda(), "audio_airborne": ref.cuda()}
     for _ in range(2):
         task.train_step(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(PROFILE_STEPS):
-        task.train_step(state, batch)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6 / PROFILE_STEPS
-
-    def steps():
-        for _ in range(PROFILE_STEPS):
-            task.train_step(state, batch)
 
     def whole(events):
         counts: dict = {}
         for e in events:
-            counts[train_kind(e.name)] = counts.get(train_kind(e.name), 0) + 1
+            counts[kernel_kind(e.name)] = counts.get(kernel_kind(e.name), 0) + 1
         return all(counts.get(k, 0) == n * PROFILE_STEPS for k, n in TRAIN_KERNEL_LAUNCHES.items())
 
-    prof, _ = cuda_trace(steps, whole, "the train steps")
-    groups: dict = {}
-    top = []
-    launches = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        launches += e.count
-        us = e.self_device_time_total / PROFILE_STEPS
-        name = e.key
-        kind = train_kind(name)
-        groups[kind] = groups.get(kind, 0.0) + us
-        top.append((us, e.count / PROFILE_STEPS, name[:90]))
-    device_us = sum(groups.values())
-    top.sort(reverse=True)
-    if not device_us:
-        raise AssertionError("the CUDA-only trace recorded no device time")
-    out = {"phase": "train_profile", "B": TRAIN_B, "T": TRAIN_T, "compute_dtype": "bfloat16",
-           "steps": PROFILE_STEPS, "step_wall_us_untraced": wall_us, "device_us_per_step": device_us,
-           "device_idle_share": 1.0 - device_us / wall_us,
-           "device_kernels_per_step": launches / PROFILE_STEPS, "by_kind_us": groups,
-           "top_kernels": [{"us": us, "per_step": n, "name": nm} for us, n, nm in top[:15]]}
+    out = {"phase": "train_profile", "B": TRAIN_B, "T": TRAIN_T, "compute_dtype": "bfloat16", "per": "step",
+           **device_profile(lambda: task.train_step(state, batch), PROFILE_STEPS, "the train steps", whole)}
     emit(out)
     return out
 
@@ -1890,23 +1941,6 @@ def stp_step_flops(config, batch: int, samples: int) -> float:
     return conv + 3 * rest
 
 
-def stp_kind(name: str) -> str:
-    low = name.lower()
-    if "ctc" in low:
-        return "CTC"
-    if any(s in low for s in ("flash", "fmha", "attention", "efficient")):
-        return "attention"
-    if "multi_tensor_apply" in low or "adam" in low:
-        return "Adam"
-    if any(s in low for s in ("dgrad", "wgrad")) or ("conv" in low and "bwd" in low):
-        return "conv backward (the grouped positional conv; the conv stack is frozen)"
-    if any(s in low for s in ("conv", "fprop", "implicit", "cudnn")):
-        return "conv forward (the conv stack and the positional conv)"
-    if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")):
-        return "GEMMs"
-    return "norms and elementwise"
-
-
 def pos_conv_ms(task, frames: int) -> dict:
     """The grouped positional conv of the base model alone at the step's
     shape (B 8, 768 channels, ``frames``), in bf16 as in the step and in
@@ -1937,8 +1971,6 @@ def phase_stp_train(weights: str) -> dict:
     each synchronised.  Then the untraced wall of STP_PROFILE_STEPS steps
     on one device batch, their device time by kind from a CUDA-only trace,
     the idle share, the positional conv alone, and the model FLOPs a step."""
-    from torch.autograd import DeviceType
-
     from vibravox_tpu_torch import run
     from vibravox_tpu_torch.core.config import compose, instantiate
 
@@ -1996,44 +2028,19 @@ def phase_stp_train(weights: str) -> dict:
     batch, state = seen["batch"], trainer.state
     for _ in range(2):
         task.train_step(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STP_PROFILE_STEPS):
-        task.train_step(state, batch)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6 / STP_PROFILE_STEPS
-
-    def steps():
-        for _ in range(STP_PROFILE_STEPS):
-            task.train_step(state, batch)
 
     def whole(events):
-        kinds = [stp_kind(e.name) for e in events]
+        kinds = [kernel_kind(e.name) for e in events]
         return kinds.count("Adam") >= STP_PROFILE_STEPS and kinds.count("CTC") >= 2 * STP_PROFILE_STEPS
 
-    prof, _ = cuda_trace(steps, whole, "the STP train steps")
-    groups, top, launches = {}, [], 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        launches += e.count
-        us = e.self_device_time_total / STP_PROFILE_STEPS
-        groups[stp_kind(e.key)] = groups.get(stp_kind(e.key), 0.0) + us
-        top.append((us, e.count / STP_PROFILE_STEPS, e.key[:90]))
-    device_us = sum(groups.values())
-    top.sort(reverse=True)
-    if not device_us:
-        raise AssertionError("the CUDA-only trace of the STP steps recorded no device time")
+    prof = device_profile(lambda: task.train_step(state, batch), STP_PROFILE_STEPS, "the STP train steps", whole)
     t = int(batch["audio"].shape[1])
     frames = config.feat_extract_output_length(t)
-    prof_out = {"phase": "stp_profile", "B": STP_B, "T": t, "frames": frames, "steps": STP_PROFILE_STEPS,
-                "step_wall_us_untraced": wall_us, "device_us_per_step": device_us,
-                "device_idle_share": 1.0 - device_us / wall_us, "device_kernels_per_step": launches / STP_PROFILE_STEPS,
-                "by_kind_us": groups, "model_flops": stp_step_flops(config, STP_B, t),
-                "model_flops_share_of_bf16_peak_untraced": stp_step_flops(config, STP_B, t) / (wall_us / 1e6)
-                / PEAK_FLOPS[torch.bfloat16],
-                "pos_conv_alone": pos_conv_ms(task, frames),
-                "top_kernels": [{"us": us, "per_step": n, "name": nm} for us, n, nm in top[:15]]}
+    prof_out = {"phase": "stp_profile", "B": STP_B, "T": t, "frames": frames, "per": "step", **prof,
+                "model_flops": stp_step_flops(config, STP_B, t),
+                "model_flops_share_of_bf16_peak_untraced": stp_step_flops(config, STP_B, t)
+                / (prof["wall_us_untraced"] / 1e6) / PEAK_FLOPS[torch.bfloat16],
+                "pos_conv_alone": pos_conv_ms(task, frames)}
     emit(prof_out)
     return {"train": out, "profile": prof_out}
 
@@ -2118,7 +2125,6 @@ def phase_cli_stp(weights: str) -> dict:
 
 SPKV_B, SPKV_T = 32, 48000  # bench.py's spkv regime: b32, 3 s at 16 kHz
 SPKV_WARMUP, SPKV_BATCHES, SPKV_PROFILE_BATCHES = 3, 20, 5
-LEAD_LAUNCHES = 64
 MEL = (512, 160, 400)  # the log-mel front end's fft, hop, win (ops/mel.py)
 MEL_LOG_TOL, SPKV_EMB_TOL, SPKV_BF16_TOL = 1e-3, 1e-4, 0.08
 SPKV_CLI_ARGS = ("lightning_datamodule=spkv", "lightning_module=ecapa2", "logging=csv",
@@ -2163,23 +2169,6 @@ def ecapa2_flops(config, batch: int, samples: int) -> float:
     flops += 2 * (3 * c * 128 + 128 * c) * frames  # attention
     flops += 2 * 2 * c * config.embed_dim
     return float(flops * batch)
-
-
-def spkv_kind(name: str) -> str:
-    low = name.lower()
-    if "framed_dft_magnitude_kernel" in name:
-        return "K3 framed_dft_magnitude"
-    if any(s in low for s in ("nchwtonhwc", "nhwctonchw", "transpose")):
-        return "NCHW<->NHWC transposes"
-    if any(s in low for s in ("conv", "fprop", "implicit", "cudnn", "xmma")):
-        return "cuDNN convolutions"
-    if any(s in low for s in ("gemm", "nvjet", "cutlass", "cublas", "sm90_")):
-        return "GEMMs"
-    if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low:
-        return "BatchNorm"
-    if "reduce" in low:
-        return "reductions (means, variances, sums)"
-    return "elementwise (ReLU, casts, gating, copies)"
 
 
 def mel_err(feats: torch.Tensor, ref: torch.Tensor) -> float:
@@ -2284,81 +2273,39 @@ def phase_spkv_embed() -> dict:
     each synchronised, with the bf16 trunk (bench.py's default) and in
     float32: ms a batch, audio-s/s, peak memory, model FLOPs and their
     share of the type's peak, the K1-K4 launches (K3 once a batch); then
-    the untraced wall of 5 batches and their device time by kernel kind
-    from a CUDA-only trace, and the idle share."""
-    from torch.autograd import DeviceType
-
+    ``device_profile`` of 5 batches."""
     out = {}
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((SPKV_B, SPKV_T)).astype(np.float32)).cuda()
     for dtype in ("bfloat16", "float32"):
         torch.manual_seed(0)
         model = ecapa2_from_config(compute_dtype=dtype, device="cuda").eval()
+        result = {}
+
+        def batch():
+            result["emb"] = model(x)
+
         flops = ecapa2_flops(model.config, SPKV_B, SPKV_T)
-        peak = PEAK_FLOPS[getattr(torch, dtype)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = []
         with torch.no_grad():
             reset_counts()
-            for i in range(SPKV_WARMUP + SPKV_BATCHES):
-                t0 = time.perf_counter()
-                emb = model(x)
-                torch.cuda.synchronize()
-                ms.append(1e3 * (time.perf_counter() - t0))
+            ms = timed_calls(batch, SPKV_WARMUP + SPKV_BATCHES)
             counts = read_counts()
-            first_ms = ms[0]
-            ms = ms[SPKV_WARMUP:]
-            t0 = time.perf_counter()
-            for _ in range(SPKV_PROFILE_BATCHES):
-                model(x)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6 / SPKV_PROFILE_BATCHES
-
-            lead = torch.zeros(1, dtype=torch.int32, device="cuda")
-
-            def batches():
-                # a trace can lose its first launches, and K3 is a forward's
-                # first kernel: lead with launches of a kind the model never
-                # runs, left out of the sums below
-                for _ in range(LEAD_LAUNCHES):
-                    lead.bitwise_xor_(1)
-                for _ in range(SPKV_PROFILE_BATCHES):
-                    model(x)
+            emb = result["emb"]
 
             def whole(events):
                 return sum("framed_dft_magnitude_kernel" in e.name for e in events) >= SPKV_PROFILE_BATCHES
 
-            prof, _ = cuda_trace(batches, whole, f"the {dtype} ECAPA2 batches")
-        groups, top, launches = {}, [], 0
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or "xor" in e.key.lower():
-                continue
-            launches += e.count
-            us = e.self_device_time_total / SPKV_PROFILE_BATCHES
-            groups[spkv_kind(e.key)] = groups.get(spkv_kind(e.key), 0.0) + us
-            top.append((us, e.count / SPKV_PROFILE_BATCHES, e.key[:90]))
-        device_us = sum(groups.values())
-        top.sort(reverse=True)
-        med = float(np.median(ms))
+            prof = device_profile(batch, SPKV_PROFILE_BATCHES, f"the {dtype} ECAPA2 batches", whole)
         row = {"phase": "spkv_embed", "compute_dtype": dtype, "B": SPKV_B, "T": SPKV_T,
-               "warmup_batches": SPKV_WARMUP, "batches": SPKV_BATCHES, "first_batch_ms": first_ms,
-               "ms_per_batch_median": med, "ms_p10": float(np.percentile(ms, 10)),
-               "ms_p90": float(np.percentile(ms, 90)), "ms": ms,
-               "audio_sec_per_sec_median": SPKV_B * SPKV_T / 16000 / (med / 1e3),
-               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "model_flops_per_batch": flops, "model_flops_share_of_peak_median": flops / (med / 1e3) / peak,
-               "peak_flops_of_type": peak, "launches": counts,
-               "profile_batches": SPKV_PROFILE_BATCHES, "batch_wall_us_untraced": wall_us,
-               "device_us_per_batch": device_us, "device_idle_share": 1.0 - device_us / wall_us,
-               "device_kernels_per_batch": launches / SPKV_PROFILE_BATCHES, "by_kind_us": groups,
-               "top_kernels": [{"us": us, "per_batch": n, "name": nm} for us, n, nm in top[:15]],
-               "embedding_finite": bool(torch.isfinite(emb).all())}
+               "warmup_batches": SPKV_WARMUP, "batches": SPKV_BATCHES,
+               **spread(ms, SPKV_WARMUP, SPKV_B * SPKV_T / 16000, flops, getattr(torch, dtype)),
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
+               "profile": prof, "embedding_finite": bool(torch.isfinite(emb).all())}
         emit(row)
         want = {"K1": 0, "K2": 0, "K3": SPKV_WARMUP + SPKV_BATCHES, "K4": 0}
         if counts != want or not row["embedding_finite"] or emb.shape != (SPKV_B, model.config.embed_dim):
             raise AssertionError(f"the {dtype} embedder's launches {counts} (want {want}), output {tuple(emb.shape)}")
-        if not device_us:
-            raise AssertionError("the CUDA-only trace of the ECAPA2 batches recorded no device time")
         out[dtype] = row
         del model
     return out
@@ -2453,6 +2400,440 @@ def phase_cli_spkv() -> dict:
     return out
 
 
+MIMI_B, MIMI_PARITY_B = 32, 2  # bench.py's mimi and codec regimes: b32, 2 s at 24 kHz
+MIMI_T = 49920  # Mimi.valid_length(2 s): 26 frames of 1920 samples
+MIMI_AUDIO_S = 2.0  # the audio in a row, as bench.py's codec regime counts it (MIMI_T is its padded length)
+MIMI_WARMUP, MIMI_STEPS, MIMI_PROFILE_STEPS = 3, 20, 5
+MIMI_CODE_TIE = 1e-4  # a code the card and the CPU disagree on must be this near a tie
+MIMI_LATENT_TOL, MIMI_DECODE_TOL = 1e-4, 1e-3
+# the bf16 codec, and the bf16 train step's loss (relative) and gradient,
+# against their float32 on the card, of scale: about 2.5x the sound
+# readings at full width (1.1e-2, 2.1e-3, 2.1e-2 on an H100)
+MIMI_BF16_TOL, MIMI_LOSS_TOL, MIMI_GRAD_TOL = 3e-2, 1e-2, 5e-2
+MIMI_CLI_ARGS = ("lightning_datamodule=bwe", "lightning_module=regressive_mimi", "sample_rate=24000",
+                 "lightning_datamodule.batch_size=16", "lightning_datamodule.dataset_name_principal=synthetic",
+                 "logging=csv", "callbacks=bwe_checkpoint", "++lightning_datamodule.synthetic_size=32",
+                 "++trainer.limit_val_batches=2", "++trainer.limit_test_batches=4")
+MIMI_CLI_TEST_BATCHES = 4
+
+
+def mimi_flops(config, batch: int, samples: int) -> dict:
+    """Model FLOPs (2 per multiply-add) of ``encode_to_latent`` and of
+    ``decode_latent`` on ``batch`` signals of ``samples`` (a whole number of
+    frames), counted from the config's conv, dense and codebook shapes;
+    attention counts the whole T x T products (SDPA with a mask computes
+    them all)."""
+    nf, d, ff = config.n_filters, config.dimension, config.transformer_ff
+
+    def transformer(t):
+        return config.transformer_layers * (4 * d * d * t + 2 * d * ff * t + 2 * t * t * d)
+
+    length, mult = samples, 1
+    enc = 7 * nf * length  # conv_in
+    for r in reversed(config.ratios):
+        c = mult * nf
+        enc += c * (c // 2) * 3 * length + (c // 2) * c * length  # the residual unit
+        length //= r
+        enc += c * 2 * c * 2 * r * length  # down_i
+        mult *= 2
+    enc += mult * nf * d * 3 * length  # conv_out
+    enc += transformer(length)
+    frames = length // config.downsample
+    enc += d * d * 2 * config.downsample * frames  # downsample
+    dec = 2 * 2 * d * config.rvq_dimension * frames  # both input and output projections, twice
+    dec += config.rvq_n_q * config.rvq_codebook_size * config.rvq_dimension * frames  # distances
+    dec += d * 2 * config.downsample * frames  # the depthwise upsample
+    length = frames * config.downsample
+    dec += transformer(length)
+    mult = 2 ** len(config.ratios)
+    dec += d * mult * nf * 7 * length  # conv_in
+    for r in config.ratios:
+        c = mult * nf
+        dec += c * (c // 2) * 2 * r * length  # up_i
+        length *= r
+        dec += (c // 2) * (c // 4) * 3 * length + (c // 4) * (c // 2) * length
+        mult //= 2
+    dec += nf * 3 * length  # conv_out
+    return {"encode_to_latent": 2.0 * enc * batch, "decode_latent": 2.0 * dec * batch}
+
+
+def mimi_speech(b: int, t: int) -> torch.Tensor:
+    """(b, t, 1) of the synthetic source's airborne speech at 24 kHz."""
+    source = SyntheticVibravoxSource(n_utterances=b, sample_rate=24000, split="speech_clean-test")
+    rows = [np.resize(source[i]["audio_airborne"], t) for i in range(b)]
+    return torch.from_numpy(np.stack(rows)[:, :, None].astype(np.float32))
+
+
+def rvq_residuals64(quantizer, latent: torch.Tensor, codes: torch.Tensor) -> list:
+    """Each stage's input residual (B, T, D), float64, of the CPU's own
+    codes: the semantic stage on its projection, the acoustic ones on theirs."""
+    out = []
+    x = latent.double()
+    for part, stages in ((quantizer.semantic, codes[:1]), (quantizer.acoustic, codes[1:])):
+        books = part.codebooks.detach().double()
+        residual = x @ part.input_proj.weight.detach().double().T
+        for q in range(stages.shape[0]):
+            out.append(residual)
+            residual = residual - books[q][stages[q]]
+    return out
+
+
+def code_agreement(model, latent: torch.Tensor, codes_cpu: torch.Tensor, codes_card: torch.Tensor) -> dict:
+    """The share of codes that agree card vs CPU by stage; at each frame's
+    first disagreeing stage, both candidates' distances to the CPU's
+    residual in float64, which must be within MIMI_CODE_TIE of each other
+    (relative): a near tie.  Later stages of such a frame start from
+    another residual and are not held."""
+    n_q = codes_cpu.shape[0]
+    agree = codes_cpu == codes_card
+    residuals = rvq_residuals64(model.quantizer, latent, codes_cpu)
+    ties, worst = [], 0.0
+    first = (~agree).int().argmax(0)  # the first disagreeing stage of each (b, t)
+    for b, t in (~agree).any(0).nonzero().tolist():
+        q = int(first[b, t])
+        part, k = (model.quantizer.semantic, q) if q == 0 else (model.quantizer.acoustic, q - 1)
+        book = part.codebooks.detach()[k].double()
+        r = residuals[q][b, t]
+        d_cpu = float(((r - book[codes_cpu[q, b, t]]) ** 2).sum())
+        d_card = float(((r - book[codes_card[q, b, t]]) ** 2).sum())
+        rel = abs(d_cpu - d_card) / max(abs(d_cpu), abs(d_card), 1e-30)
+        worst = max(worst, rel)
+        ties.append({"b": b, "t": t, "stage": q, "rel_distance_gap": rel})
+    return {"share_agree_by_stage": agree.float().mean(dim=(1, 2)).tolist(),
+            "frames": int(agree.shape[1] * agree.shape[2]),
+            "frames_with_a_flip": len(ties), "flips": ties[:20], "worst_rel_distance_gap": worst,
+            "rows_all_agree": agree.all(0).all(-1).tolist(), "n_q": n_q}
+
+
+def randomise_mimi(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Conv biases, LayerNorms' affine parameters and layer scales drawn
+    from ``seed`` (the initialisers leave them 0, 1 and 0.01), so the
+    comparisons exercise them."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "layer_scale" in name:
+                p.copy_(torch.rand(p.shape, generator=gen) * 0.45 + 0.05)
+            elif ".norm" in name:
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5 if name.endswith("weight")
+                        else torch.randn(p.shape, generator=gen) * 0.1)
+            elif name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    return model
+
+
+def mimi_bf16_faults() -> dict:
+    """Faults a bf16 path could have, each planted for one comparison: the
+    bf16 check must catch each of the first two.  The third is read and
+    reported only: torch's bf16 LayerNorm keeps float32 statistics and its
+    output feeds only the bf16 projections, so it moves the codec by about
+    bf16's rounding."""
+    from vibravox_tpu_torch.models.mimi import rvq, seanet
+
+    def no_bias(t, dtype):
+        return None if dtype is not None and t is not None and t.ndim == 1 else seanet_cast(t, dtype)
+
+    def bf16_ln(self, x):
+        return F.layer_norm(x.bfloat16(), self.normalized_shape, self.weight.bfloat16(), self.bias.bfloat16(),
+                            self.eps).float()
+
+    def bf16_rvq():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(rvq, "nearest", lambda book, x: nearest(book.bfloat16(), x.bfloat16())))
+        stack.enter_context(mock.patch.object(rvq.ResidualVectorQuantizer, "forward",
+                                              lambda self, x: rvq_forward(self, x.bfloat16().float())))
+        return stack
+
+    seanet_cast, nearest, rvq_forward = seanet.cast, rvq.nearest, rvq.ResidualVectorQuantizer.forward
+    return {"conv biases lost in bf16": (True, lambda: mock.patch.object(seanet, "cast", no_bias)),
+            "RVQ input and distances in bf16": (True, bf16_rvq),
+            "transformer LayerNorms in bf16": (False, lambda: mock.patch.object(torch.nn.LayerNorm, "forward",
+                                                                                bf16_ln))}
+
+
+def mimi_grads(model, x: torch.Tensor) -> tuple:
+    """The regressive loss of one ``RegressiveMimiTask.train_step`` (body
+    ``x * 0.5``, airborne ``x``, the frozen copy at the same weights) and
+    the gradient of the trainable side, flat; an SGD of lr 0 leaves the
+    weights as they were."""
+    task = RegressiveMimiTask(mimi=model, optimizer=sgd(0.0), device="cuda")
+    state = task.init_state(0)
+    _, logs = task.train_step(state, {"audio_body_conducted": x * 0.5, "audio_airborne": x})
+    grad = torch.cat([p.grad.flatten() for p in state.optimizer.param_groups[0]["params"]])
+    return float(logs["train/l1_latent_loss"]), grad
+
+
+def phase_mimi_parity() -> dict:
+    """float32 (IEEE, ``strict_float32`` in every method).  The published
+    ``MimiConfig()`` at full width from one seed-0 state dict (biases,
+    LayerNorms and layer scales randomised) on the card and on the CPU, on
+    b2 x 2 s of synthetic speech: ``encode_to_latent`` within
+    MIMI_LATENT_TOL of scale; the codes by stage, each disagreement a near
+    tie (``code_agreement``); ``decode`` of the CPU's codes, and
+    ``decode_latent`` on the rows whose codes all agree (if any), within
+    MIMI_DECODE_TOL of scale.  Then the bf16 compute path on the card
+    against its float32: the latents and the decode of the same latents
+    within MIMI_BF16_TOL of scale and the same codes of those latents, and
+    each planted fault of ``mimi_bf16_faults`` caught by one of the two;
+    the train step's loss within MIMI_LOSS_TOL (relative) and trainable
+    gradient within MIMI_GRAD_TOL of scale."""
+    x = mimi_speech(MIMI_PARITY_B, MIMI_T)
+    cpu = randomise_mimi(Mimi(seed=0, device="cpu").eval(), 1)
+    card = Mimi(seed=0, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    before = read_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        latent_cpu = cpu.encode_to_latent(x)
+        codes_cpu = cpu.quantizer(latent_cpu)[1]
+        rec_cpu = cpu.decode_latent(latent_cpu)
+        dec_cpu = cpu.decode(codes_cpu)
+        cpu_s = time.perf_counter() - t0
+        latent = card.encode_to_latent(x.cuda())
+        codes = card.quantizer(latent)[1].cpu()
+        rec = card.decode_latent(latent).cpu()
+        dec = card.decode(codes_cpu.cuda()).cpu()
+        latent = latent.cpu()
+    codes_row = code_agreement(cpu, latent_cpu, codes_cpu, codes)
+    rows = [i for i, ok in enumerate(codes_row["rows_all_agree"]) if ok]
+    out = {"phase": "mimi_parity", "B": MIMI_PARITY_B, "T": MIMI_T, "frames": int(latent.shape[1]),
+           "params": sum(p.numel() for p in cpu.parameters()), "cpu_forward_s": cpu_s,
+           "latent_err_over_scale": rel_err(latent, latent_cpu), "latent_tol": MIMI_LATENT_TOL,
+           "codes": codes_row, "code_tie_tol": MIMI_CODE_TIE,
+           "decode_codes_err_over_scale": rel_err(dec, dec_cpu),
+           "decode_latent_rows": rows,
+           "decode_latent_err_over_scale": rel_err(rec[rows], rec_cpu[rows]) if rows else None,
+           "decode_tol": MIMI_DECODE_TOL}
+    del cpu
+    bf16 = Mimi(seed=0, device="cuda", compute_dtype="bfloat16").eval()
+    bf16.load_state_dict(card.state_dict())
+    xc, latent = x.cuda(), latent.cuda()
+
+    def bf16_errs() -> dict:
+        """The bf16 codec against float32: the latents and the decode of the
+        same latents, of scale, and the codes of those latents, which the
+        float32 RVQ must give unchanged."""
+        with torch.no_grad():
+            lat16, rec16 = bf16.encode_to_latent(xc), bf16.decode_latent(latent)
+            codes16 = bf16.quantizer(latent)[1]
+        return {"latent": rel_err(lat16, latent), "decode_latent": rel_err(rec16, rec32),
+                "codes_differ": int((codes16 != codes32).sum()), "dtypes": [str(lat16.dtype), str(rec16.dtype)]}
+
+    def caught(errs) -> bool:
+        return max(errs["latent"], errs["decode_latent"]) > MIMI_BF16_TOL or errs["codes_differ"] > 0
+
+    with torch.no_grad():
+        rec32, codes32 = card.decode_latent(latent), card.quantizer(latent)[1]
+    sound = bf16_errs()
+    faults = {}
+    for name, (must_catch, plant) in mimi_bf16_faults().items():
+        with plant():
+            errs = bf16_errs()
+        faults[name] = {"err_over_scale": max(errs["latent"], errs["decode_latent"]),
+                        "codes_differ": errs["codes_differ"], "caught": caught(errs), "must_catch": must_catch}
+    loss32, grad32 = mimi_grads(card, xc)
+    loss16, grad16 = mimi_grads(bf16, xc)
+    out["bf16"] = {"latent_err_over_scale": sound["latent"], "decode_latent_err_over_scale": sound["decode_latent"],
+                   "codes_differ": sound["codes_differ"], "tol": MIMI_BF16_TOL, "dtypes": sound["dtypes"],
+                   "planted_faults": faults,
+                   "train_loss": {"bfloat16": loss16, "float32": loss32},
+                   "train_loss_rel_err": abs(loss16 - loss32) / abs(loss32),
+                   "train_grad_err_over_scale": rel_err(grad16, grad32),
+                   "train_grad_cosine": float(F.cosine_similarity(grad16, grad32, dim=0)),
+                   "train_loss_tol": MIMI_LOSS_TOL, "train_grad_tol": MIMI_GRAD_TOL}
+    out["launches"] = {k: v - before[k] for k, v in read_counts().items()}
+    emit(out)
+    if not out["latent_err_over_scale"] <= MIMI_LATENT_TOL:
+        raise AssertionError(f"the codec's latents on the card differ from the CPU's: {out}")
+    if not codes_row["worst_rel_distance_gap"] <= MIMI_CODE_TIE:
+        raise AssertionError(f"a code differs card vs CPU away from a near tie: {codes_row}")
+    if not (out["decode_codes_err_over_scale"] <= MIMI_DECODE_TOL
+            and (not rows or out["decode_latent_err_over_scale"] <= MIMI_DECODE_TOL)):
+        raise AssertionError(f"the codec's decode on the card differs from the CPU's: {out}")
+    b = out["bf16"]
+    if caught(sound) or sound["dtypes"] != ["torch.float32"] * 2:
+        raise AssertionError(f"the bf16 codec is off its float32: {b}")
+    missed = [name for name, f in faults.items() if f["must_catch"] and not f["caught"]]
+    if missed:
+        raise AssertionError(f"the bf16 check misses planted faults {missed}: {faults}")
+    if not (b["train_loss_rel_err"] <= MIMI_LOSS_TOL and b["train_grad_err_over_scale"] <= MIMI_GRAD_TOL):
+        raise AssertionError(f"the bf16 train step is off its float32: {b}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"hand-written kernels launched on the Mimi path: {out['launches']}")
+    return out
+
+
+def phase_mimi_train() -> dict:
+    """bench.py's mimi regime on the port: the full-width codec in bf16
+    (seed 0), ``RegressiveMimiTask`` with bench's Adam (lr 1e-4), one
+    device batch of 32 x 2 s (bench's: noise x 0.1 airborne, half of it
+    body-conducted), MIMI_WARMUP then MIMI_STEPS steps, each synchronised:
+    step ms (median, p10-p90), audio-s/s, peak memory, FLOPs (a frozen
+    forward, a trainable forward and its backward, 4x ``encode_to_latent``)
+    over the bf16 peak, the K1-K4 launches (none); the loss on this fixed
+    batch falls and the decoder side, the quantizer and the frozen copy are
+    bit-equal after the steps; then a trace of MIMI_PROFILE_STEPS steps."""
+    torch.manual_seed(0)
+    task = RegressiveMimiTask(mimi=Mimi(seed=0, compute_dtype="bfloat16", device="cuda"), optimizer=adam(1e-4))
+    rng = np.random.default_rng(0)
+    ref = torch.from_numpy(rng.standard_normal((MIMI_B, MIMI_T, 1)).astype(np.float32) * 0.1).cuda()
+    batch = {"audio_body_conducted": ref * 0.5, "audio_airborne": ref}
+    state = task.init_state(0)
+    frozen_parts = {k: v.clone() for k, v in task.mimi.state_dict().items() if k.split(".")[0] not in ENCODER_SIDE}
+    frozen_copy = {k: v.clone() for k, v in state.frozen.state_dict().items()}
+    logged = []
+
+    def step():
+        logged.append(task.train_step(state, batch)[1]["train/l1_latent_loss"])
+
+    flops = mimi_flops(task.mimi.config, MIMI_B, MIMI_T)
+    step_flops = 4 * flops["encode_to_latent"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms = timed_calls(step, MIMI_WARMUP + MIMI_STEPS)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in logged]
+    after = task.mimi.state_dict()
+    unchanged = all(torch.equal(after[k], v) for k, v in frozen_parts.items()) and all(
+        torch.equal(state.frozen.state_dict()[k], v) for k, v in frozen_copy.items())
+    out = {"phase": "mimi_train", "B": MIMI_B, "T": MIMI_T, "compute_dtype": "bfloat16",
+           "warmup_steps": MIMI_WARMUP, "steps": MIMI_STEPS, "launches": counts,
+           **spread(ms, MIMI_WARMUP, MIMI_B * MIMI_T / 24000, step_flops),
+           "flops_per_audio_second": step_flops / (MIMI_B * MIMI_T / 24000),
+           "encode_flops_per_audio_second": flops["encode_to_latent"] / (MIMI_B * MIMI_T / 24000),
+           "max_memory_allocated_gib": peak, "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "frozen_parts_bit_equal": unchanged,
+           "trainable_params": sum(p.numel() for p in state.optimizer.param_groups[0]["params"])}
+    out["profile"] = profile = device_profile(step, MIMI_PROFILE_STEPS, "the Mimi train steps")
+    profile["flops_share_of_bf16_peak_untraced"] = step_flops / (profile["wall_us_untraced"] / 1e6) / PEAK_FLOPS[
+        torch.bfloat16]
+    emit(out)
+    if any(counts.values()):
+        raise AssertionError(f"hand-written kernels launched on the Mimi train path: {counts}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0] and unchanged):
+        raise AssertionError(f"the Mimi train steps: losses {losses}, frozen parts unchanged {unchanged}")
+    return out
+
+
+def phase_codec() -> dict:
+    """bench.py's codec regime on the port: the full-width codec in bf16
+    (seed 0), ``encode_to_latent`` then ``decode_latent`` of 32 x 2 s of
+    noise x 0.1 under ``no_grad``, MIMI_WARMUP then MIMI_STEPS round trips,
+    each synchronised, with the figures of ``phase_mimi_train`` (FLOPs: one
+    encode and one decode, over the padded MIMI_T; audio-s/s from
+    MIMI_AUDIO_S a row, as bench.py's codec regime counts it)."""
+    model = Mimi(seed=0, compute_dtype="bfloat16", device="cuda").eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((MIMI_B, MIMI_T, 1)).astype(np.float32) * 0.1).cuda()
+    result = {}
+
+    @torch.no_grad()
+    def round_trip():
+        result["y"] = model.decode_latent(model.encode_to_latent(x))
+
+    flops = mimi_flops(model.config, MIMI_B, MIMI_T)
+    total = flops["encode_to_latent"] + flops["decode_latent"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms = timed_calls(round_trip, MIMI_WARMUP + MIMI_STEPS)
+    counts = read_counts()
+    y = result["y"]
+    out = {"phase": "codec", "B": MIMI_B, "T": MIMI_T, "compute_dtype": "bfloat16",
+           "warmup_calls": MIMI_WARMUP, "calls": MIMI_STEPS, "launches": counts,
+           **spread(ms, MIMI_WARMUP, MIMI_B * MIMI_AUDIO_S, total), "flops_by_half": flops,
+           "flops_per_audio_second": total / (MIMI_B * MIMI_T / 24000),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "output_shape": list(y.shape), "output_finite": bool(torch.isfinite(y).all()),
+           "output_dtype": str(y.dtype)}
+    out["profile"] = profile = device_profile(round_trip, MIMI_PROFILE_STEPS, "the codec round trips")
+    profile["flops_share_of_bf16_peak_untraced"] = total / (profile["wall_us_untraced"] / 1e6) / PEAK_FLOPS[
+        torch.bfloat16]
+    emit(out)
+    if any(counts.values()):
+        raise AssertionError(f"hand-written kernels launched on the codec path: {counts}")
+    if not (out["output_finite"] and y.shape == x.shape and y.dtype == torch.float32):
+        raise AssertionError(f"the codec's output: {out['output_shape']}, finite {out['output_finite']}")
+    return out
+
+
+def phase_cli_mimi() -> dict:
+    """``run.main`` with MIMI_CLI_ARGS: the published ``bwe`` data module at
+    24 kHz (``sample_rate=24000``, which also sets the ``light``
+    augmentation's rate) at batch 16 on 32 synthetic utterances, and
+    ``regressive_mimi.yaml`` (the full-width codec in bf16, seed 0): fit two
+    epochs of two steps validating two batch-1 batches an epoch, checkpoints
+    by validation STOI, then test("last") on four batches; then again with
+    max_epochs 3, which resumes at epoch 2.  The fit is timed; each test
+    batch is split into the eval step (synchronised) and the host SE
+    metrics; the K1-K4 counts are read around each run (all 0)."""
+    from vibravox_tpu_torch import run
+
+    timing = {"eval_step": [], "metrics": []}
+    marks: dict = {}
+    eval_step, eval_metrics, test = RegressiveMimiTask.eval_step, RegressiveMimiTask.eval_metrics, Trainer.test
+
+    def timed_eval_step(self, state, batch):
+        t0 = time.perf_counter()
+        out = eval_step(self, state, batch)
+        torch.cuda.synchronize()
+        timing["eval_step"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_metrics(self, outputs):
+        t0 = time.perf_counter()
+        out = eval_metrics(self, outputs)
+        timing["metrics"].append(time.perf_counter() - t0)
+        return out
+
+    def marked_test(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["fit_end"] = time.perf_counter()
+        for v in timing.values():
+            v.clear()
+        return test(self, *args, **kwargs)
+
+    def run_cli(run_dir, epochs):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = run.main([*MIMI_CLI_ARGS, f"++trainer.max_epochs={epochs}", f"++run_dir={run_dir}"])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        progress = json.loads((Path(run_dir) / "checkpoints" / "trainer_state.json").read_text())
+        return {"epochs": epochs, "fit_wall_s": marks["fit_end"] - t0, "test_wall_s": end - marks["fit_end"],
+                "test_s_per_batch": (end - marks["fit_end"]) / MIMI_CLI_TEST_BATCHES,
+                "eval_step_ms": [1e3 * s for s in timing["eval_step"]],
+                "se_metrics_ms": [1e3 * s for s in timing["metrics"]],
+                "launches": read_counts(), "trainer_state": progress, "metrics": metrics,
+                "last": (Path(run_dir) / "checkpoints" / "last" / "state.pt").exists()}
+
+    RegressiveMimiTask.eval_step, RegressiveMimiTask.eval_metrics, Trainer.test = (
+        timed_eval_step, timed_metrics, marked_test)
+    try:
+        with tempfile.TemporaryDirectory(prefix="vibravox_mimi_cli_") as run_dir:
+            first = run_cli(run_dir, 2)
+            resumed = run_cli(run_dir, 3)
+    finally:
+        RegressiveMimiTask.eval_step, RegressiveMimiTask.eval_metrics, Trainer.test = eval_step, eval_metrics, test
+    out = {"phase": "cli_mimi", "B": 16, "steps_per_epoch": 2, "val_batches": 2,
+           "test_batches": MIMI_CLI_TEST_BATCHES, "first": first, "resumed": resumed}
+    emit(out)
+    keys = {"test/l1_latent_loss", "test/torchmetrics_si_sdr", "test/torchmetrics_stoi"}
+    for r, progress in ((first, {"epoch": 1, "global_step": 4}), (resumed, {"epoch": 2, "global_step": 6})):
+        m = r["metrics"]
+        if set(m) != keys or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"the Mimi CLI's test metrics {m}")
+        if r["trainer_state"] != progress or not r["last"]:
+            raise AssertionError(f"the Mimi CLI's progress {r['trainer_state']}, last {r['last']}")
+        if any(r["launches"].values()):
+            raise AssertionError(f"hand-written kernels launched on the Mimi CLI: {r['launches']}")
+        if len(r["eval_step_ms"]) != MIMI_CLI_TEST_BATCHES:
+            raise AssertionError(f"timed test batches {r['eval_step_ms']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2489,8 +2870,10 @@ def main() -> int:
         stp = phase_stp_train(weights)
         cli_stp = phase_cli_stp(weights)
     spkv = {"parity": phase_spkv_parity(), "embed": phase_spkv_embed(), "cli": phase_cli_spkv()}
+    mimi = {"parity": phase_mimi_parity(), "train": phase_mimi_train(), "codec": phase_codec(),
+            "cli": phase_cli_mimi()}
     emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                      evals, cli, noisy, pad_short, stp, cli_stp, spkv))
+                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2521,15 +2904,15 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                 evals, cli, noisy, pad_short, stp, cli_stp, spkv) -> dict:
+                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
     measured one by one with CUDA events.  ``launches`` is the count over
     this slice's main path, the CLI's first run (fit and test);
     ``launches_by_path`` has it per path, the timed fit of the train phase
-    included, the STP paths, which run none of the four kernels, and the
-    SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
+    included, the STP and Mimi paths, which run none of the four kernels,
+    and the SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
     end's fft-512 times and bounds, per call at the b32 regime's shape and
     at a batch-1 trial).  K1's serving numbers (per forward, float32 and bfloat16, 1 s
     bucket, batch 8) and its float32 eval numbers (per eval forward of the
@@ -2550,7 +2933,10 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
                 "cli_stp_resumed": cli_stp["resumed"]["launches"][key],
                 "spkv_embed": sum(r["launches"][key] for r in spkv["embed"].values()),
                 "cli_spkv": spkv["cli"]["mixed_gender"]["launches"][key],
-                "cli_spkv_same_gender": spkv["cli"]["same_gender"]["launches"][key]}
+                "cli_spkv_same_gender": spkv["cli"]["same_gender"]["launches"][key],
+                "mimi_parity": mimi["parity"]["launches"][key], "mimi_train": mimi["train"]["launches"][key],
+                "codec": mimi["codec"]["launches"][key], "cli_mimi": mimi["cli"]["first"]["launches"][key],
+                "cli_mimi_resumed": mimi["cli"]["resumed"]["launches"][key]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]
@@ -2646,7 +3032,7 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
          "eval": k3_eval,
          "spkv": {"per": "per call at fft 512, hop 160, win 400: the b32 regime (32 x 48000) and a batch-1 trial",
                   "calls": spkv["parity"]["k3"],
-                  "traced_us_per_embed_batch": {dt: r["by_kind_us"].get("K3 framed_dft_magnitude")
+                  "traced_us_per_embed_batch": {dt: r["profile"]["by_kind_us"].get("K3 framed_dft_magnitude")
                                                 for dt, r in spkv["embed"].items()},
                   "launches_per_embed_batch": 1, "launches_per_cli_trial": 2},
          "errors": "max_abs_err is the error over the largest magnitude"},

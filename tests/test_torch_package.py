@@ -210,6 +210,27 @@ def test_spkv_entry_points_without_gpu_raise(no_cuda, tmp_path):
     assert not run_dir.exists()
 
 
+def test_mimi_entry_points_without_gpu_raise(no_cuda, tmp_path):
+    """The codec, the regressive-Mimi task and the CLI use the GPU unless
+    asked for the CPU, and raise without one."""
+    from vibravox_tpu_torch.core.optim import adam
+    from vibravox_tpu_torch.models.mimi.mimi import Mimi
+    from vibravox_tpu_torch.run import main
+    from vibravox_tpu_torch.tasks.regressive_mimi import RegressiveMimiTask
+
+    model = Mimi(preset="tiny", device="cpu")
+    for make in (lambda: Mimi(preset="tiny"), lambda: RegressiveMimiTask(mimi=model, optimizer=adam())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert RegressiveMimiTask(mimi=model, optimizer=adam(), device="cpu").device == torch.device("cpu")
+    run_dir = tmp_path / "run"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["lightning_datamodule=bwe", "lightning_module=regressive_mimi", "sample_rate=24000",
+              "logging=csv", "lightning_datamodule.dataset_name_principal=synthetic",
+              "++lightning_module.mimi.preset=tiny", f"++run_dir={run_dir}"])
+    assert not run_dir.exists()
+
+
 def test_text_metrics_have_no_fallback():
     """The CER and edit operations always run the native kernel; a failed
     build raises (its Python DP is the tests' twin, not a fallback)."""

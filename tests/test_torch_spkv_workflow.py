@@ -74,10 +74,21 @@ def checkpoint(tmp_path_factory):
 
 
 def _jax_main(argv):
+    import jax
+
+    # run.py points JAX's compile cache at its own directory: put the
+    # suite's (tests/conftest.py) back, for the files that run after this one
+    keep = {k: getattr(jax.config, k) for k in (
+        "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+        "jax_persistent_cache_min_entry_size_bytes")}
     spec = importlib.util.spec_from_file_location("vibravox_run", ROOT / "run.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.main(argv)
+    try:
+        return module.main(argv)
+    finally:
+        for k, v in keep.items():
+            jax.config.update(k, v)
 
 
 def test_cli_test_metrics_equal_jax(checkpoint, tmp_path):

@@ -10,12 +10,15 @@ gain as ``parametrizations.weight.original0`` and the direction as
 * ConvTranspose1d: weight (in, out/groups, k), gain per *input* channel.
 
 Initialisation is torch's conv default; weight norm starts with the gain at
-the direction's norm, so the effective weight equals it.  Weights are cast
+the direction's norm, so the effective weight equals it.  ``variance_scaling_``
+is flax's truncated-normal initialiser, for the models that draw their
+random weights as the JAX package's do (wav2vec2, Mimi).  Weights are cast
 to the activations' dtype at the call (f32 masters, bf16 compute).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
@@ -24,7 +27,15 @@ from torch.nn.utils.parametrizations import weight_norm
 
 from vibravox_tpu_torch.ops.conv import conv1d, conv_transpose1d, norm_padding
 
-__all__ = ["TorchConv1d", "WNConv1d", "WNConvTranspose1d"]
+__all__ = ["TorchConv1d", "WNConv1d", "WNConvTranspose1d", "variance_scaling_"]
+
+
+def variance_scaling_(w: torch.Tensor, scale: float, fan_in: int, gen: torch.Generator) -> None:
+    """flax ``variance_scaling(scale, "fan_in", "truncated_normal")``: a
+    normal truncated at two of its deviations, rescaled to variance
+    ``scale / fan_in``."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
 class TorchConv1d(nn.Conv1d):

@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -47,6 +46,7 @@ from torch import nn
 from torch.nn.utils.parametrizations import weight_norm
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device
+from vibravox_tpu_torch.models.layers import variance_scaling_
 
 __all__ = [
     "Wav2Vec2Config",
@@ -379,14 +379,6 @@ class Wav2Vec2ForCTC(nn.Module):
 # --------------------------------------------------------------------------- #
 
 
-def _variance_scaling_(w: torch.Tensor, scale: float, fan_in: int, gen: torch.Generator) -> None:
-    """flax ``variance_scaling(scale, "fan_in", "truncated_normal")``: a
-    normal truncated at two of its deviations, rescaled to variance
-    ``scale / fan_in``."""
-    std = math.sqrt(scale / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
-
-
 @torch.no_grad()
 def _init_jax_like(model: Wav2Vec2ForCTC, seed: int) -> None:
     """The JAX initialisers' distributions: Linear and conv weights
@@ -396,19 +388,19 @@ def _init_jax_like(model: Wav2Vec2ForCTC, seed: int) -> None:
     gen = torch.Generator().manual_seed(int(seed))
     for module in model.modules():
         if isinstance(module, nn.Linear):
-            _variance_scaling_(module.weight, 1.0, module.in_features, gen)
+            variance_scaling_(module.weight, 1.0, module.in_features, gen)
             nn.init.zeros_(module.bias)
         elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)
     for layer in model.wav2vec2.feature_extractor.conv_layers:
         conv = layer.conv
-        _variance_scaling_(conv.weight, 1.0, conv.in_channels * conv.kernel_size[0], gen)
+        variance_scaling_(conv.weight, 1.0, conv.in_channels * conv.kernel_size[0], gen)
         if conv.bias is not None:
             nn.init.zeros_(conv.bias)
     pos = model.wav2vec2.encoder.pos_conv_embed.conv
     v = pos.parametrizations.weight.original1
-    _variance_scaling_(v, 2.0, v.shape[1] * v.shape[2], gen)
+    variance_scaling_(v, 2.0, v.shape[1] * v.shape[2], gen)
     pos.parametrizations.weight.original0.copy_(torch.linalg.vector_norm(v, dim=(0, 1), keepdim=True))
     nn.init.zeros_(pos.bias)
     if model.config.apply_spec_augment:
