@@ -163,9 +163,33 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     epochs, test("last") (finite STOI and SI-SDR), a resumed third epoch;
     the fit's wall and the test's seconds per batch split into the eval
     step and the host SE metrics;
-29. the ``kernels`` line (all four kernels), then the result line.
+29. squim_parity: the SQUIM networks (no hand-written kernel on their
+    path) at full width, ``squim_objective_base()`` and
+    ``squim_subjective_base()`` (seed 0, norms, PReLU slopes and alpha
+    randomised), written as torchaudio-schema state dicts and loaded on the
+    card by ``load_squim_predictors``, on 4 x 2.5 s of speech at 16 kHz:
+    card against CPU in IEEE float32 (scores and MOS within 1e-4 of
+    scale), and the objective's deviation with cuDNN's RNNs left in TF32,
+    reported;
+30. squim_eval: ``SEMetrics`` with SQUIM at the CLI's test batch (batch 1,
+    2.5 s), 3 warm-up and 20 synchronised calls split into the objective,
+    the subjective and the rest; the objective alone at 32 x 2.5 s; FLOPs
+    from the shapes, device time by kind, idle share and kernels a call;
+31. hub_enhance: the full-width EBEN generator saved by
+    ``save_eben_generator`` and loaded on the card by
+    ``eben_generator_from_pretrained`` (forward bit-equal), then
+    ``scripts/eben_enhanced_vibravox.py`` on 8 synthetic test utterances
+    on the card (each npz within 1e-5 of scale of the direct forward, K1
+    six launches an utterance, seconds an utterance);
+32. cli_squim: the CLI's test of phases ``cli`` and ``cli_noisybwe``
+    again, on their ``last`` checkpoints, with ``VIBRAVOX_SQUIM_DIR``
+    holding the full-width SQUIM weights: ``torchsquim_stoi`` in [0, 1]
+    and ``noresqa_mos`` finite (on the noisy CLI's reference-free batches
+    too), the K1-K4 launches equal to those phases' tests, the test
+    seconds a batch split into SQUIM and the rest;
+33. the ``kernels`` line (all four kernels), then the result line.
 
-Phases 3 and 7 change PyTorch's precision settings, and only around the
+Phases 3, 7 and 29 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
 is taken again, up to four times, until it records every launch of the
 hand-written kernels that its run made (``cuda_trace``).
@@ -312,6 +336,8 @@ def kernel_kind(name: str) -> str:
         return "K4 framed_dft_backward"
     if "ctc" in low:
         return "CTC"
+    if "rnn" in low or "lstm" in low:
+        return "LSTM (cuDNN RNN)"
     if any(s in low for s in ("flash", "fmha", "attention", "efficient")):
         return "attention"
     if "multi_tensor_apply" in low or "adam" in low:
@@ -342,7 +368,10 @@ def device_profile(run_one, calls: int, what: str, whole=None) -> dict:
     """Where a call of ``run_one`` spends its time (the caller warms it up
     first): the untraced wall of ``calls`` calls run back to back, then the
     device time of as many more by ``kernel_kind`` from a CUDA-only trace,
-    and the device's idle share, all per call.  A trace can lose its first
+    and the device's idle share, all per call.  The idle share is that of
+    the busy time, the union of the kernels' intervals: kernels on
+    concurrent streams (cuDNN runs an LSTM's two directions so) overlap,
+    and their summed time can exceed the wall.  A trace can lose its first
     launches, so the traced calls are led by LEAD_LAUNCHES launches of a
     kind no path runs, left out of the sums, and the trace is taken again
     until one of those is recorded and ``whole(events)``, if given, holds."""
@@ -365,7 +394,11 @@ def device_profile(run_one, calls: int, what: str, whole=None) -> dict:
     def recorded(events):
         return any("xor" in e.name.lower() for e in events) and (whole is None or whole(events))
 
-    prof, _ = cuda_trace(traced, recorded, what)
+    prof, events = cuda_trace(traced, recorded, what)
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events if "xor" not in e.name.lower()):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
     groups, top, launches = {}, [], 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or "xor" in e.key.lower():
@@ -379,7 +412,8 @@ def device_profile(run_one, calls: int, what: str, whole=None) -> dict:
         raise AssertionError(f"the CUDA-only trace of {what} recorded no device time")
     top.sort(reverse=True)
     return {"calls": calls, "wall_us_untraced": wall_us, "device_us": device_us,
-            "device_idle_share": 1.0 - device_us / wall_us, "device_kernels": launches / calls,
+            "device_busy_us": busy / calls, "device_idle_share": 1.0 - busy / calls / wall_us,
+            "device_kernels": launches / calls,
             "by_kind_us": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"us": us, "per_call": n, "name": nm} for us, n, nm in top[:15]]}
 
@@ -1224,12 +1258,13 @@ def wait_against_step(steps: dict) -> dict:
             "later_wait_over_step_max": max(later), "later_wait_over_step_median": float(np.median(later))}
 
 
-def phase_cli() -> dict:
+def phase_cli(run_dir: str) -> dict:
     """The CLI's main path: ``vibravox_tpu_torch.run.main`` with CLI_ARGS,
-    at full width, in a temporary run_dir (fit two epochs of two steps at
-    batch 32, bf16, validating four batch-1 float32 batches an epoch,
-    checkpoints by validation STOI, then test("last") on four batches),
-    then again with max_epochs 3, which resumes at epoch 2.  The counts are
+    at full width, in ``run_dir`` (fit two epochs of two steps at batch 32,
+    bf16, validating four batch-1 float32 batches an epoch, checkpoints by
+    validation STOI, then test("last") on four batches), then again with
+    max_epochs 3, which resumes at epoch 2 (phase ``cli_squim`` tests its
+    ``last`` again).  The counts are
     reset before each run; fit and test are told apart at the test's entry.
     The test pass is timed per batch: the eval step (wall, synchronised,
     and CUDA events) and the host metrics (SI-SDR, the copy, STOI).  Each
@@ -1239,8 +1274,6 @@ def phase_cli() -> dict:
     runs, as in a fresh one (restored onto the card, they cost a host sync
     per parameter); the resumed run's steps are reported beside the first
     run's, the first step of each and the median of the rest."""
-    import tempfile
-
     from vibravox_tpu_torch import run
     from vibravox_tpu_torch.tasks import se_metrics
 
@@ -1318,16 +1351,15 @@ def phase_cli() -> dict:
     EBENTask.eval_metrics = timed(eval_metrics, "metrics")
     se_metrics.stoi, Trainer.test, Trainer.fit = timed(stoi, "stoi"), marked_test, kept_fit
     try:
-        with tempfile.TemporaryDirectory(prefix="vibravox_cli_") as run_dir:
-            metrics, launches, fit_s, test_s, steps = run_cli(run_dir, 2)
-            test_timing = {k: list(v) for k, v in timing.items()}
-            ckpt = Path(run_dir) / "checkpoints"
-            index = json.loads((ckpt / "index.json").read_text())
-            progress = json.loads((ckpt / "trainer_state.json").read_text())
-            top_k = sorted(p.name for p in ckpt.glob("step_*"))
-            have_last = (ckpt / "last" / "state.pt").exists()
-            metrics2, launches2, fit2_s, test2_s, steps2 = run_cli(run_dir, 3)
-            progress2 = json.loads((ckpt / "trainer_state.json").read_text())
+        metrics, launches, fit_s, test_s, steps = run_cli(run_dir, 2)
+        test_timing = {k: list(v) for k, v in timing.items()}
+        ckpt = Path(run_dir) / "checkpoints"
+        index = json.loads((ckpt / "index.json").read_text())
+        progress = json.loads((ckpt / "trainer_state.json").read_text())
+        top_k = sorted(p.name for p in ckpt.glob("step_*"))
+        have_last = (ckpt / "last" / "state.pt").exists()
+        metrics2, launches2, fit2_s, test2_s, steps2 = run_cli(run_dir, 3)
+        progress2 = json.loads((ckpt / "trainer_state.json").read_text())
     finally:
         EBENTask.train_step, EBENTask.eval_step, EBENTask.eval_metrics = train_step, eval_step, eval_metrics
         se_metrics.stoi, Trainer.test, Trainer.fit = stoi, test, fit
@@ -1699,8 +1731,8 @@ NOISY_CLI_ARGS = ("lightning_datamodule=noisybwe", "lightning_module=eben", "cal
                   "++trainer.limit_val_batches=4", "++trainer.limit_test_batches=4", "++trainer.max_epochs=2")
 
 
-def phase_cli_noisybwe() -> dict:
-    """``run.main`` with NOISY_CLI_ARGS in a temporary run_dir: noisybwe.yaml
+def phase_cli_noisybwe(run_dir: str) -> dict:
+    """``run.main`` with NOISY_CLI_ARGS in ``run_dir``: noisybwe.yaml
     as published (its ``aggressive`` augmentation) on the synthetic source,
     fit two epochs of two steps at batch 32, validating four batches of
     each of the ``synthetic`` and ``real`` loaders an epoch, then
@@ -1744,16 +1776,15 @@ def phase_cli_noisybwe() -> dict:
     EBENTask.train_step, EBENTask.eval_step, Trainer.test, Trainer.fit = (
         timed_train_step, recorded_eval_step, marked_test, kept_fit)
     try:
-        with tempfile.TemporaryDirectory(prefix="vibravox_noisy_cli_") as run_dir:
-            reset_counts()
-            t0 = time.perf_counter()
-            metrics = run.main([*NOISY_CLI_ARGS, f"++run_dir={run_dir}"])
-            torch.cuda.synchronize()
-            test_s = time.perf_counter() - marks["fit_end"]
-            counts = read_counts()
-            ckpt = Path(run_dir) / "checkpoints"
-            have_last = (ckpt / "last" / "state.pt").exists()
-            progress = json.loads((ckpt / "trainer_state.json").read_text())
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = run.main([*NOISY_CLI_ARGS, f"++run_dir={run_dir}"])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - marks["fit_end"]
+        counts = read_counts()
+        ckpt = Path(run_dir) / "checkpoints"
+        have_last = (ckpt / "last" / "state.pt").exists()
+        progress = json.loads((ckpt / "trainer_state.json").read_text())
     finally:
         EBENTask.train_step, EBENTask.eval_step, Trainer.test, Trainer.fit = train_step, eval_step, test, fit
 
@@ -1922,11 +1953,9 @@ def phase_stp_parity() -> dict:
     return out
 
 
-def stp_step_flops(config, batch: int, samples: int) -> float:
-    """Model FLOPs of one train step, counted from the config (2 per
-    multiply-add): the frozen conv stack forward once, everything after it
-    forward and backward (3x its forward: the backward computes the
-    gradients of both the activations and the weights)."""
+def wav2vec2_flops(config, batch: int, samples: int) -> tuple:
+    """Forward FLOPs of a wav2vec2 (2 per multiply-add), counted from the
+    config: (the conv stack, everything after it up to the CTC head)."""
     t, cin, conv = samples, 1, 0.0
     for dim, k, s in zip(config.conv_dim, config.conv_kernel, config.conv_stride):
         t = (t - k) // s + 1
@@ -1938,6 +1967,14 @@ def stp_step_flops(config, batch: int, samples: int) -> float:
     rest += 2 * (h // config.num_conv_pos_embedding_groups) * h * config.num_conv_pos_embeddings * tokens
     per_layer = 2 * (4 * h * h + 2 * h * f) * tokens + 2 * 2 * t * t * h * batch  # projections, FFN, QK^T and PV
     rest += config.num_hidden_layers * per_layer + 2 * h * v * tokens
+    return conv, rest
+
+
+def stp_step_flops(config, batch: int, samples: int) -> float:
+    """Model FLOPs of one train step: the frozen conv stack forward once,
+    everything after it forward and backward (3x its forward: the backward
+    computes the gradients of both the activations and the weights)."""
+    conv, rest = wav2vec2_flops(config, batch, samples)
     return conv + 3 * rest
 
 
@@ -2457,9 +2494,9 @@ def mimi_flops(config, batch: int, samples: int) -> dict:
     return {"encode_to_latent": 2.0 * enc * batch, "decode_latent": 2.0 * dec * batch}
 
 
-def mimi_speech(b: int, t: int) -> torch.Tensor:
-    """(b, t, 1) of the synthetic source's airborne speech at 24 kHz."""
-    source = SyntheticVibravoxSource(n_utterances=b, sample_rate=24000, split="speech_clean-test")
+def mimi_speech(b: int, t: int, sample_rate: int = 24000) -> torch.Tensor:
+    """(b, t, 1) of the synthetic source's airborne speech."""
+    source = SyntheticVibravoxSource(n_utterances=b, sample_rate=sample_rate, split="speech_clean-test")
     rows = [np.resize(source[i]["audio_airborne"], t) for i in range(b)]
     return torch.from_numpy(np.stack(rows)[:, :, None].astype(np.float32))
 
@@ -2834,6 +2871,344 @@ def phase_cli_mimi() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the SQUIM metrics and pretrained EBEN (no new hand-written kernel)
+# ---------------------------------------------------------------------------
+
+SQUIM_T = 40000  # 2.5 s at 16 kHz: 1249 encoder frames, 38 chunks of 71
+SQUIM_B = 4
+SQUIM_BATCH_B = 32  # the objective alone at bench's batch
+SQUIM_TOL = 1e-4
+SQUIM_WARMUP, SQUIM_CALLS, SQUIM_PROFILE_CALLS = 3, 20, 5
+HUB_UTTERANCES = 8
+
+
+def randomise_squim(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """GroupNorm and LayerNorm scales and biases, PReLU slopes and
+    AutoPool's alpha drawn from ``seed`` (their initialisers make each an
+    identity or a constant), so the comparisons exercise them."""
+    from vibravox_tpu_torch.models.squim import AutoPool
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+                module.weight.copy_(torch.rand(module.weight.shape, generator=gen) + 0.5)
+                module.bias.copy_(torch.randn(module.bias.shape, generator=gen) * 0.1)
+            elif isinstance(module, torch.nn.PReLU):
+                module.weight.copy_(torch.rand(module.weight.shape, generator=gen) * 0.5)
+            elif isinstance(module, AutoPool):
+                module.alpha.copy_(torch.rand(1, generator=gen) + 0.5)
+    return model
+
+
+def squim_objective_flops(config, batch: int, samples: int) -> dict:
+    """Forward FLOPs of the objective (2 per multiply-add), counted from the
+    config and the input's shape: the encoder, the bi-LSTMs' gate GEMMs (4
+    per block: row and column, each both directions), their projections,
+    the 1x1 conv, the three transformer branches and their heads."""
+    n, h, d, k = config.feat_dim, config.hidden_dim, config.d_model, config.chunk_size
+    t = (samples - config.win_len) // (config.win_len // 2) + 1
+    stride = k // 2
+    gap = (k - (stride + t % k) % k) % k
+    chunks = 2 * (t + stride + gap) // k
+    positions = batch * chunks * k
+    tokens = batch * t
+    branch = (2 * tokens * d * 4 * d  # q/k/v and out projections
+              + 2 * 2 * t * t * d * batch  # QK^T and PV
+              + 2 * 2 * tokens * d * 4 * d  # the feed-forward
+              + 2 * batch * (d * d + d))  # the head's MLP
+    out = {"frames": t, "chunks": chunks, "encoder": 2.0 * n * config.win_len * tokens,
+           "lstm": 2.0 * config.num_blocks * 2 * 2 * positions * 4 * h * (n + h),
+           "lstm_projections": 2.0 * config.num_blocks * 2 * positions * 2 * h * n,
+           "conv_1x1": 2.0 * positions * n * d, "transformer_branches": 3.0 * branch}
+    out["total"] = sum(v for key, v in out.items() if key not in ("frames", "chunks"))
+    out["lstm_share"] = out["lstm"] / out["total"]
+    return out
+
+
+def squim_subjective_flops(config, batch: int, samples: int) -> float:
+    """Forward FLOPs of the subjective: the backbone on the estimate and on
+    the reference, then the projector, attention pooling and MOS head."""
+    conv, rest = wav2vec2_flops(config.ssl, 2 * batch, samples)
+    rest -= 2 * config.ssl.hidden_size * config.ssl.vocab_size * 2 * batch * config.ssl.feat_extract_output_length(samples)
+    tokens = batch * config.ssl.feat_extract_output_length(samples)
+    head = 2 * tokens * (2 * config.ssl.hidden_size * config.proj_dim + config.proj_dim * (1 + config.att_dim))
+    return conv + rest + head + 2 * batch * config.att_dim
+
+
+def phase_squim_parity(squim_dir: str) -> dict:
+    """The SQUIM networks at full width (``squim_objective_base()`` and
+    ``squim_subjective_base()``, seed 0, norms, PReLU slopes and alpha
+    randomised), written to ``squim_dir`` as torchaudio-schema state dicts
+    and loaded on the card by ``load_squim_predictors`` (the SE eval's
+    route), on 4 x 2.5 s of the synthetic source's speech at 16 kHz (the
+    MOS against four other utterances): card against CPU in IEEE float32
+    (``strict_float32``, cuDNN's RNNs included), every score within
+    SQUIM_TOL of its scale.  The objective is read again with the LSTMs
+    left in TF32, reported and not held: what the RNN setting is worth.  No
+    hand-written kernel lies on this path."""
+    from vibravox_tpu_torch.metrics.squim import load_squim_predictors
+    from vibravox_tpu_torch.models import squim as squim_module
+    from vibravox_tpu_torch.models.squim import squim_objective_base, squim_subjective_base
+
+    objective = randomise_squim(squim_objective_base(seed=0, device="cpu"), 10)
+    subjective = randomise_squim(squim_subjective_base(seed=0, device="cpu"), 11)
+    torch.save(objective.state_dict(), Path(squim_dir) / "squim_objective.pt")
+    torch.save(subjective.torchaudio_state_dict(), Path(squim_dir) / "squim_subjective.pt")
+    reset_counts()
+    (_, obj_card), (subj_fn, subj_card) = load_squim_predictors(squim_dir)
+    audio = mimi_speech(2 * SQUIM_B, SQUIM_T, 16000)[:, :, 0]
+    estimate, reference = audio[:SQUIM_B], audio[SQUIM_B:]
+
+    def timed(fn):
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    want_obj, cpu_obj_s = timed(lambda: objective(estimate))
+    want_mos, cpu_mos_s = timed(lambda: subjective(estimate, reference))
+    got_obj, card_obj_s = timed(lambda: obj_card(estimate.cuda()))
+    got_mos, card_mos_s = timed(lambda: subj_fn(subj_card, estimate.cuda(), reference.cuda()))
+
+    def err(got, want):
+        diff = (got.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        return {"max_abs_err": diff, "scale": scale, "err_over_scale": diff / scale}
+
+    @contextlib.contextmanager
+    def rnn_in_tf32():  # strict_float32 as it was before the RNN setting joined it
+        with strict_float32():
+            torch.backends.cudnn.rnn.fp32_precision = "tf32"
+            yield
+
+    with mock.patch.object(squim_module, "strict_float32", rnn_in_tf32):
+        tf32, _ = timed(lambda: obj_card(estimate.cuda()))
+    names = ("stoi", "pesq", "sisdr")
+    scores = {name: err(g, w) for name, g, w in zip(names, got_obj, want_obj)}
+    mos = err(got_mos, want_mos)
+    out = {"phase": "squim_parity", "B": SQUIM_B, "T": SQUIM_T, "objective_params": sum(
+        p.numel() for p in objective.parameters()), "subjective_params": sum(p.numel() for p in subjective.parameters()),
+        "objective": scores, "mos": mos, "tol": SQUIM_TOL,
+        "objective_with_rnn_in_tf32": {n: err(g, w) for n, g, w in zip(names, tf32, want_obj)},
+        "scores_gpu": {n: g.tolist() for n, g in zip(names, got_obj)}, "mos_gpu": got_mos.tolist(),
+        "cpu_seconds": {"objective": cpu_obj_s, "subjective": cpu_mos_s},
+        "card_first_call_seconds": {"objective": card_obj_s, "subjective": card_mos_s},
+        "launches": read_counts()}
+    emit(out)
+    for name, e in {**scores, "mos": mos}.items():
+        if not (math.isfinite(e["err_over_scale"]) and e["err_over_scale"] <= SQUIM_TOL):
+            raise AssertionError(f"SQUIM {name} on the card differs from the CPU's: {e}")
+    if not (bool(((got_obj[0] >= 0) & (got_obj[0] <= 1)).all()) and bool(torch.isfinite(got_mos).all())):
+        raise AssertionError(f"SQUIM scores out of range: {out['scores_gpu']}, MOS {out['mos_gpu']}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"hand-written kernels launched on the SQUIM path: {out['launches']}")
+    return out
+
+
+def phase_squim_eval(squim_dir: str) -> dict:
+    """The SE eval with SQUIM on the card: ``SEMetrics`` with the weights of
+    ``squim_dir`` on the first batch of the CLI's test loader (batch 1, the
+    eval collate's 2.5 s crop cut to the generator's valid length; its
+    body-conducted signal as the estimate, the airborne one as the
+    reference), 3 warm-up and 20 synchronised calls, split into the
+    objective, the subjective and the rest (resampling, SI-SDR, STOI on the
+    host); then the objective alone on 32 x 2.5 s.  Each with FLOPs counted
+    from the shapes and a ``device_profile`` (device time by kind, idle
+    share, kernels a call), taken without the split's synchronisations."""
+    from vibravox_tpu_torch.models.squim import SquimObjectiveConfig, SquimSubjectiveConfig
+    from vibravox_tpu_torch.tasks.se_metrics import SEMetrics
+
+    batch = cli_test_batch()
+    t = batch["audio_body_conducted"].shape[1]
+    t -= (t + 32) % 256  # EBENGenerator.valid_length at n = 32, m = 4: what the eval step hands on
+    outputs = {"enhanced": batch["audio_body_conducted"][:, :t].cuda(),
+               "reference": batch["audio_airborne"][:, :t].cuda()}
+    se = SEMetrics(16000, squim_dir=squim_dir)
+    predictors = {"objective": se.squim_stoi.predictor, "subjective": se.noresqa_mos.predictor}
+    parts = {k: [] for k in predictors}
+
+    def timed_part(key):
+        fn, model = predictors[key]
+
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapper, model
+
+    se.squim_stoi.predictor, se.noresqa_mos.predictor = timed_part("objective"), timed_part("subjective")
+    reset_counts()
+    metrics = {}
+    calls = timed_calls(lambda: metrics.update(se(outputs)), SQUIM_WARMUP + SQUIM_CALLS)
+    se.squim_stoi.predictor, se.noresqa_mos.predictor = predictors["objective"], predictors["subjective"]
+    ms = {"total": np.array(calls), **{k: np.array(v) for k, v in parts.items()}}
+    ms["rest"] = ms["total"] - ms["objective"] - ms["subjective"]
+    obj_cfg = SquimObjectiveConfig()
+    flops = {"objective": squim_objective_flops(obj_cfg, 1, t),
+             "subjective": squim_subjective_flops(SquimSubjectiveConfig(), 1, t)}
+
+    def summary(v):
+        later = v[SQUIM_WARMUP:]
+        return {"first": float(v[0]), "median": float(np.median(later)), "p10": float(np.percentile(later, 10)),
+                "p90": float(np.percentile(later, 90))}
+
+    cli_batch = {"B": 1, "T": t, "ms": {k: summary(v) for k, v in ms.items()}, "metrics": metrics,
+                 "flops": flops, "flops_share_of_f32_peak_median": {
+                     "objective": flops["objective"]["total"] / (np.median(ms["objective"][SQUIM_WARMUP:]) / 1e3)
+                     / PEAK_FLOPS[torch.float32],
+                     "subjective": flops["subjective"] / (np.median(ms["subjective"][SQUIM_WARMUP:]) / 1e3)
+                     / PEAK_FLOPS[torch.float32]},
+                 "calls_timed": {k: len(v) for k, v in parts.items()},
+                 "profile": device_profile(lambda: se(outputs), SQUIM_PROFILE_CALLS, "the SE metrics with SQUIM")}
+
+    apply_fn, model = predictors["objective"]
+    x = mimi_speech(SQUIM_BATCH_B, SQUIM_T, 16000)[:, :, 0].cuda()
+    b32_flops = squim_objective_flops(obj_cfg, SQUIM_BATCH_B, SQUIM_T)
+    torch.cuda.reset_peak_memory_stats()
+    b32_ms = timed_calls(lambda: apply_fn(model, x), SQUIM_WARMUP + SQUIM_CALLS)
+    b32 = {"B": SQUIM_BATCH_B, "T": SQUIM_T,
+           **spread(b32_ms, SQUIM_WARMUP, SQUIM_BATCH_B * SQUIM_T / 16000, b32_flops["total"], torch.float32),
+           "flops_detail": b32_flops, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "profile": device_profile(lambda: apply_fn(model, x), SQUIM_PROFILE_CALLS, "the SQUIM objective at b32")}
+    launches = read_counts()
+    out = {"phase": "squim_eval", "cli_batch": cli_batch, "objective_b32": b32, "launches": launches}
+    emit(out)
+    if set(metrics) != {"torchmetrics_si_sdr", "torchmetrics_stoi", "torchsquim_stoi", "noresqa_mos"}:
+        raise AssertionError(f"the SE metrics with SQUIM logged {sorted(metrics)}")
+    if cli_batch["calls_timed"] != {"objective": SQUIM_WARMUP + SQUIM_CALLS, "subjective": SQUIM_WARMUP + SQUIM_CALLS}:
+        raise AssertionError(f"timed SQUIM calls {cli_batch['calls_timed']}")
+    if any(launches.values()):
+        raise AssertionError(f"hand-written kernels launched by the SE metrics or the objective: {launches}")
+    return out
+
+
+def phase_hub_enhance() -> dict:
+    """Pretrained EBEN through the hub layout: the full-width generator
+    (m=4, n=32, p=2, seed 0) saved by ``save_eben_generator`` (the port's
+    safetensors writer), loaded on the card by
+    ``eben_generator_from_pretrained``, its forward bit-equal to the saved
+    one's; then ``scripts/eben_enhanced_vibravox.py`` on the card over 8
+    synthetic test utterances: each npz within 1e-5 of scale of the source
+    generator's direct forward, K1 six launches an utterance (counts reset
+    just before the script), seconds an utterance."""
+    from vibravox_tpu_torch.data.bwe import resolve_source
+    from vibravox_tpu_torch.models.hub import eben_generator_from_pretrained, save_eben_generator
+    from vibravox_tpu_torch.scripts.eben_enhanced_vibravox import main as enhance
+
+    torch.manual_seed(0)
+    source = EBENGenerator(device="cuda").eval()
+    with tempfile.TemporaryDirectory(prefix="vibravox_hub_") as tmp:
+        save_eben_generator(source, Path(tmp) / "weights")
+        loaded = eben_generator_from_pretrained(Path(tmp) / "weights")
+        audio = mimi_speech(1, source.valid_length(SQUIM_T), 16000).cuda()
+        with torch.inference_mode():
+            bit_equal = torch.equal(loaded(audio)[0], source(audio)[0])
+        reset_counts()
+        t0 = time.perf_counter()
+        enhance(["--dataset", "synthetic", "--sensors", "body_conducted", "--weights", str(Path(tmp) / "weights"),
+                 "--out", str(Path(tmp) / "out"), "--limit", str(HUB_UTTERANCES)])
+        torch.cuda.synchronize()
+        script_s = time.perf_counter() - t0
+        launches = read_counts()
+        rows = resolve_source("synthetic", "speech_clean", "test", "body_conducted", 16000, False)
+        errs, lengths = [], []
+        for i in range(HUB_UTTERANCES):
+            got = np.load(Path(tmp) / "out" / "body_conducted" / f"{i:06d}.npz")["audio_enhanced"]
+            body = torch.from_numpy(rows[i]["audio_body_conducted"])[None, :, None].cuda()
+            with torch.inference_mode():
+                want = source(source.cut_to_valid_length(body))[0][0, :, 0].cpu().numpy()
+            lengths.append(len(want))
+            errs.append(float(np.abs(got - want).max() / np.abs(want).max()) if got.shape == want.shape else math.inf)
+    out = {"phase": "hub_enhance", "generator_bit_equal": bit_equal, "utterances": HUB_UTTERANCES,
+           "samples": lengths, "script_wall_s": script_s, "s_per_utterance": script_s / HUB_UTTERANCES,
+           "audio_s": sum(lengths) / 16000, "err_over_scale": errs, "tol": 1e-5, "launches": launches}
+    emit(out)
+    if not bit_equal:
+        raise AssertionError("the generator loaded from the hub layout differs from the one saved")
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"the enhancement script's output differs from the direct forward: {errs}")
+    if launches != {"K1": 6 * HUB_UTTERANCES, "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"kernel launches {launches} enhancing {HUB_UTTERANCES} utterances")
+    return out
+
+
+def phase_cli_squim(squim_dir: str, cli_dir: str, noisy_dir: str, cli: dict, noisy: dict) -> dict:
+    """The CLI's test with SQUIM: ``run.main`` again on phase ``cli``'s
+    run_dir (max_epochs 3, its last epoch: no step, then test("last") on
+    four batches) and on phase ``cli_noisybwe``'s (max_epochs 2: the four
+    ``synthetic`` and four ``real`` test batches), with
+    ``VIBRAVOX_SQUIM_DIR`` at ``squim_dir``.  ``torchsquim_stoi`` must be
+    logged within [0, 1] and ``noresqa_mos`` finite, on the noisy CLI's
+    reference-free batches too; the K1-K4 launches of each test equal those
+    of the phase it repeats; the test seconds a batch are split into the
+    SQUIM calls and the rest."""
+    from vibravox_tpu_torch import run
+    from vibravox_tpu_torch.metrics.squim import NoresqaMOS, TorchsquimSTOI
+
+    squim_ms: list = []
+    marks: dict = {}
+    calls = {"stoi": TorchsquimSTOI.__call__, "mos": NoresqaMOS.__call__, "test": Trainer.test}
+
+    def timed(fn):
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            squim_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    def marked_test(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["test_start"] = time.perf_counter()
+        squim_ms.clear()
+        return calls["test"](self, *args, **kwargs)
+
+    def test_again(args, run_dir, batches):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = run.main([*args, f"++run_dir={run_dir}"])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        test_s = end - marks["test_start"]
+        return {"metrics": metrics, "launches": read_counts(), "run_wall_s": end - t0, "test_wall_s": test_s,
+                "batches": batches, "test_s_per_batch": test_s / batches, "squim_calls": len(squim_ms),
+                "squim_ms_per_batch": sum(squim_ms) / batches,
+                "rest_ms_per_batch": (1e3 * test_s - sum(squim_ms)) / batches}
+
+    TorchsquimSTOI.__call__, NoresqaMOS.__call__ = timed(calls["stoi"]), timed(calls["mos"])
+    Trainer.test = marked_test
+    try:
+        with mock.patch.dict(os.environ, {"VIBRAVOX_SQUIM_DIR": squim_dir}):
+            eben = test_again([*CLI_ARGS, "++trainer.max_epochs=3"], cli_dir, CLI_TEST_BATCHES)
+            noisy_run = test_again(NOISY_CLI_ARGS, noisy_dir, 2 * CLI_TEST_BATCHES)
+    finally:
+        TorchsquimSTOI.__call__, NoresqaMOS.__call__, Trainer.test = calls["stoi"], calls["mos"], calls["test"]
+    out = {"phase": "cli_squim", "eben": eben, "noisybwe": noisy_run,
+           "note": "the test restores last (its fit restored it too and ran no step); test_wall_s is the test pass"}
+    emit(out)
+    for name, r, want in (("eben", eben, cli["test"]["launches"]), ("noisybwe", noisy_run, noisy["launches"]["test"])):
+        if r["launches"] != want:
+            raise AssertionError(f"the {name} CLI's test with SQUIM launched {r['launches']}, its phase {want}")
+    m = eben["metrics"]
+    if not (0 <= m.get("test/torchsquim_stoi", -1) <= 1 and math.isfinite(m.get("test/noresqa_mos", math.nan))):
+        raise AssertionError(f"the EBEN CLI's test metrics with SQUIM {m}")
+    m = noisy_run["metrics"]
+    for split in ("synthetic", "real"):
+        if not (0 <= m.get(f"test/torchsquim_stoi/{split}", -1) <= 1
+                and math.isfinite(m.get(f"test/noresqa_mos/{split}", math.nan))):
+            raise AssertionError(f"the noisy CLI's test metrics with SQUIM {m}")
+    if eben["squim_calls"] != 2 * CLI_TEST_BATCHES or noisy_run["squim_calls"] != 4 * CLI_TEST_BATCHES:
+        raise AssertionError(f"SQUIM calls {eben['squim_calls']} and {noisy_run['squim_calls']} in the tests")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2862,18 +3237,25 @@ def main() -> int:
     phase_augment()
     phase_loader(train["step_ms_median"])
     phase_npz()
-    cli = phase_cli()
-    noisy = phase_cli_noisybwe()
-    phase_stp_parity()
-    with tempfile.TemporaryDirectory(prefix="vibravox_stp_weights_") as weights:
-        stp_weights(weights)
-        stp = phase_stp_train(weights)
-        cli_stp = phase_cli_stp(weights)
-    spkv = {"parity": phase_spkv_parity(), "embed": phase_spkv_embed(), "cli": phase_cli_spkv()}
-    mimi = {"parity": phase_mimi_parity(), "train": phase_mimi_train(), "codec": phase_codec(),
-            "cli": phase_cli_mimi()}
+    # the two CLI runs stay on disk for phase cli_squim, which tests them again
+    with tempfile.TemporaryDirectory(prefix="vibravox_cli_") as cli_dir, \
+            tempfile.TemporaryDirectory(prefix="vibravox_noisy_cli_") as noisy_dir:
+        cli = phase_cli(cli_dir)
+        noisy = phase_cli_noisybwe(noisy_dir)
+        phase_stp_parity()
+        with tempfile.TemporaryDirectory(prefix="vibravox_stp_weights_") as weights:
+            stp_weights(weights)
+            stp = phase_stp_train(weights)
+            cli_stp = phase_cli_stp(weights)
+        spkv = {"parity": phase_spkv_parity(), "embed": phase_spkv_embed(), "cli": phase_cli_spkv()}
+        mimi = {"parity": phase_mimi_parity(), "train": phase_mimi_train(), "codec": phase_codec(),
+                "cli": phase_cli_mimi()}
+        with tempfile.TemporaryDirectory(prefix="vibravox_squim_") as squim_dir:
+            squim = {"parity": phase_squim_parity(squim_dir), "eval": phase_squim_eval(squim_dir),
+                     "hub": phase_hub_enhance(),
+                     "cli": phase_cli_squim(squim_dir, cli_dir, noisy_dir, cli, noisy)}
     emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi))
+                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2904,15 +3286,16 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi) -> dict:
+                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
     measured one by one with CUDA events.  ``launches`` is the count over
     this slice's main path, the CLI's first run (fit and test);
     ``launches_by_path`` has it per path, the timed fit of the train phase
-    included, the STP and Mimi paths, which run none of the four kernels,
-    and the SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
+    included, the STP, Mimi and SQUIM paths, which run none of the four
+    kernels, the hub enhancement script (K1 alone), the CLI tests with
+    SQUIM (K1 and K3), and the SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
     end's fft-512 times and bounds, per call at the b32 regime's shape and
     at a batch-1 trial).  K1's serving numbers (per forward, float32 and bfloat16, 1 s
     bucket, batch 8) and its float32 eval numbers (per eval forward of the
@@ -2936,7 +3319,11 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
                 "cli_spkv_same_gender": spkv["cli"]["same_gender"]["launches"][key],
                 "mimi_parity": mimi["parity"]["launches"][key], "mimi_train": mimi["train"]["launches"][key],
                 "codec": mimi["codec"]["launches"][key], "cli_mimi": mimi["cli"]["first"]["launches"][key],
-                "cli_mimi_resumed": mimi["cli"]["resumed"]["launches"][key]}
+                "cli_mimi_resumed": mimi["cli"]["resumed"]["launches"][key],
+                "squim_parity": squim["parity"]["launches"][key], "squim_eval": squim["eval"]["launches"][key],
+                "hub_enhance": squim["hub"]["launches"][key],
+                "cli_squim_test": squim["cli"]["eben"]["launches"][key],
+                "cli_squim_noisybwe_test": squim["cli"]["noisybwe"]["launches"][key]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]

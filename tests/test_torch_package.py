@@ -2,7 +2,7 @@
 
 The port must stand alone: no module of ``vibravox_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax, the JAX package or
-``transformers`` (the GPU machine has none of them).  Its entry points
+``transformers`` or ``safetensors`` (the GPU machine has none of them).  Its entry points
 run on the GPU unless asked for the CPU, and raise without a GPU."""
 
 import ast
@@ -17,7 +17,7 @@ from vibravox_tpu_torch.models.eben_generator import EBENGenerator
 from vibravox_tpu_torch.serving import EnhanceServer, StreamingEnhancer
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vibravox_tpu", "transformers"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vibravox_tpu", "transformers", "safetensors"}
 
 
 def _imported_roots(path: Path):
@@ -107,6 +107,73 @@ def test_generator_keeps_float32_convolutions_out_of_tf32():
         assert conv.fp32_precision == "tf32"
     finally:
         conv.fp32_precision = caller
+
+
+@pytest.mark.parametrize("backend", ["cudnn.conv", "cudnn.rnn", "cuda.matmul"])
+def test_strict_float32_sets_and_restores_each_setting(backend):
+    """cuDNN's convolutions and RNNs and CUDA's matmuls are IEEE float32
+    inside the block, and the caller's setting is back after it, on an
+    error too."""
+    group, name = backend.split(".")
+    setting = getattr(getattr(torch.backends, group), name)
+    caller = setting.fp32_precision
+    try:
+        setting.fp32_precision = "tf32"
+        with strict_float32():
+            assert setting.fp32_precision == "ieee"
+        assert setting.fp32_precision == "tf32"
+        with pytest.raises(KeyError), strict_float32():
+            raise KeyError("restored on error too")
+        assert setting.fp32_precision == "tf32"
+    finally:
+        setting.fp32_precision = caller
+
+
+def test_squim_lstms_run_in_ieee_float32():
+    """The SQUIM objective's LSTMs run with cuDNN's RNN precision IEEE
+    whatever the caller's setting, which is restored after the call."""
+    from vibravox_tpu_torch.models.squim import SquimObjective, SquimObjectiveConfig
+
+    rnn = torch.backends.cudnn.rnn
+    caller = rnn.fp32_precision
+    model = SquimObjective(SquimObjectiveConfig(feat_dim=8, win_len=16, d_model=8, nhead=2, hidden_dim=8,
+                                                num_blocks=1, chunk_size=7))
+    seen = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.LSTM):
+            mod.register_forward_pre_hook(lambda *_: seen.append(rnn.fp32_precision))
+    try:
+        rnn.fp32_precision = "tf32"
+        with torch.no_grad():
+            model(torch.randn(1, 800))
+        assert seen == ["ieee", "ieee"] and rnn.fp32_precision == "tf32"
+    finally:
+        rnn.fp32_precision = caller
+
+
+def test_squim_and_hub_entry_points_without_gpu_raise(no_cuda, tmp_path):
+    """The SQUIM factories and loaders, the SE metrics given SQUIM weights,
+    the pretrained EBEN loader and the enhancement script use the GPU
+    unless asked for the CPU, and raise without one."""
+    from vibravox_tpu_torch.metrics.squim import load_squim_predictors
+    from vibravox_tpu_torch.models.hub import eben_generator_from_pretrained, save_eben_generator
+    from vibravox_tpu_torch.models.squim import SquimObjective, squim_objective_base, squim_subjective_base
+    from vibravox_tpu_torch.scripts.eben_enhanced_vibravox import main as enhance
+    from vibravox_tpu_torch.tasks.se_metrics import SEMetrics
+
+    with torch.device("meta"):
+        objective = SquimObjective()
+    torch.save({k: torch.zeros(v.shape) for k, v in objective.state_dict().items()}, tmp_path / "squim_objective.pt")
+    save_eben_generator(EBENGenerator(device="cpu"), tmp_path / "eben")
+    for make in (squim_objective_base, squim_subjective_base, lambda: load_squim_predictors(tmp_path),
+                 lambda: SEMetrics(16000, squim_dir=str(tmp_path)),
+                 lambda: eben_generator_from_pretrained(tmp_path / "eben"),
+                 lambda: enhance(["--dataset", "synthetic", "--weights", str(tmp_path / "eben"),
+                                  "--out", str(tmp_path / "out"), "--limit", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert load_squim_predictors(tmp_path, device="cpu")[0] is not None
+    assert not (tmp_path / "out").exists()
 
 
 def test_workflow_entry_points_without_gpu_raise(no_cuda, tmp_path):

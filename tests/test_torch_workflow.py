@@ -389,17 +389,26 @@ def test_model_summary_depth():
 
 
 @pytest.mark.parametrize("how", ["argument", "environment"])
-def test_squim_metrics_are_refused(how, monkeypatch):
+def test_squim_metrics_are_refused(how, monkeypatch, tmp_path):
+    """SQUIM weights whose keys do not fit the architecture are refused; a
+    directory without the files leaves the SQUIM metrics out, as no
+    directory does."""
+    torch.save({"encoder.conv1d.weight": torch.zeros(256, 1, 64)}, tmp_path / "squim_objective.pt")
+    empty = tmp_path / "empty"
+    empty.mkdir()
     if how == "environment":
-        monkeypatch.setenv("VIBRAVOX_SQUIM_DIR", "/nonexistent")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            SEMetrics(16000)
+        monkeypatch.setenv("VIBRAVOX_SQUIM_DIR", str(tmp_path))
+        with pytest.raises(RuntimeError, match="Missing key"):
+            SEMetrics(16000, device="cpu")
+        monkeypatch.setenv("VIBRAVOX_SQUIM_DIR", str(empty))
+        metrics = SEMetrics(16000)
     else:
         monkeypatch.delenv("VIBRAVOX_SQUIM_DIR", raising=False)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            SEMetrics(16000, squim_dir="/nonexistent")
-        metrics = SEMetrics(16000)
-        assert metrics.squim_stoi is None and metrics.noresqa_mos is None
+        with pytest.raises(RuntimeError, match="Missing key"):
+            SEMetrics(16000, squim_dir=str(tmp_path), device="cpu")
+        metrics = SEMetrics(16000, squim_dir=str(empty))
+        assert SEMetrics(16000).squim_stoi is None
+    assert metrics.squim_stoi is None and metrics.noresqa_mos is None
 
 
 def test_preemption_signal_saves_last_and_ends_the_fit(tmp_path):

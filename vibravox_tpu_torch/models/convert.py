@@ -25,6 +25,15 @@ in, kh, kw) and (k, in, out) -> (out, in, k), Dense ``kernel`` (in, out)
 ``running_var`` (``num_batches_tracked`` 0).  Every leaf is consumed, and
 one left over raises.
 
+SQUIM (``squim_objective_state_dict_from_jax``,
+``squim_subjective_state_dict_from_jax``): torchaudio's key schema, the
+inverse of the JAX package's ``squim_*_params_from_torch``.  Each flax
+``OptimizedLSTMCell`` direction (per-gate ``i{i,f,g,o}`` input kernels,
+``h{i,f,g,o}`` hidden kernels and biases) -> ``weight_ih_l0`` /
+``weight_hh_l0`` (gate rows i, f, g, o), its one bias per gate -> ``bias_ih_l0``
+and zeros -> ``bias_hh_l0`` (torch adds the two); the 1x1 conv's Dense
+kernel (N, d) -> ``weight`` (d, N, 1, 1), PReLU's scalar slope -> (1,).
+
 The params are given as numpy arrays (``jax.device_get`` of the tree).
 """
 
@@ -44,6 +53,8 @@ __all__ = [
     "wav2vec2_state_dict_from_jax",
     "ecapa2_state_dict_from_jax",
     "ecapa_tdnn_state_dict_from_jax",
+    "squim_objective_state_dict_from_jax",
+    "squim_subjective_state_dict_from_jax",
 ]
 
 
@@ -280,3 +291,72 @@ def ecapa_tdnn_state_dict_from_jax(variables: Mapping[str, Any], scale: int = 8)
     t.batch_norm(("bn_pool",), "bn_pool")
     t.dense(("embedding",), "embedding")
     return t.state_dict("ECAPA-TDNN")
+
+
+def _squim_lstm(t: _Leaves, src: tuple, dst: str) -> None:
+    """A ``SingleRNN``: both flax LSTM directions, then the projection."""
+    for cell, suffix in (("cell_fwd", ""), ("cell_bwd", "_reverse")):
+        gates = "ifgo"
+        w_ih = [t.pop("params", *src, cell, f"i{g}", "kernel").T for g in gates]
+        w_hh = [t.pop("params", *src, cell, f"h{g}", "kernel").T for g in gates]
+        bias = [t.pop("params", *src, cell, f"h{g}", "bias") for g in gates]
+        t.sd[f"{dst}.rnn.weight_ih_l0{suffix}"] = np.concatenate(w_ih)
+        t.sd[f"{dst}.rnn.weight_hh_l0{suffix}"] = np.concatenate(w_hh)
+        t.sd[f"{dst}.rnn.bias_ih_l0{suffix}"] = np.concatenate(bias)
+        t.sd[f"{dst}.rnn.bias_hh_l0{suffix}"] = np.zeros_like(t.sd[f"{dst}.rnn.bias_ih_l0{suffix}"])
+    t.dense((*src, "proj"), f"{dst}.proj")
+
+
+def _norm(t: _Leaves, src: tuple, dst: str) -> None:
+    t.sd[f"{dst}.weight"] = t.pop("params", *src, "scale")
+    t.sd[f"{dst}.bias"] = t.pop("params", *src, "bias")
+
+
+def squim_objective_state_dict_from_jax(params: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
+    """Flax ``SquimObjective`` params (with or without the outer ``"params"``
+    key) -> state dict of ``vibravox_tpu_torch.models.squim.SquimObjective``
+    of the same ``config``, in torchaudio's keys."""
+    t = _Leaves({"params": params["params"] if "params" in params else params})
+    t.sd["encoder.conv1d.weight"] = np.transpose(t.pop("params", "encoder", "kernel"), (2, 1, 0))
+    for i in range(config.num_blocks):
+        for kind in ("row", "col"):
+            _squim_lstm(t, ("dprnn", f"{kind}_rnn_{i}"), f"dprnn.{kind}_rnn.{i}")
+            _norm(t, ("dprnn", f"{kind}_norm_{i}"), f"dprnn.{kind}_norm.{i}")
+    t.sd["dprnn.conv.0.weight"] = t.pop("params", "dprnn", "conv", "kernel").T[:, :, None, None]
+    t.sd["dprnn.conv.0.bias"] = t.pop("params", "dprnn", "conv", "bias")
+    t.sd["dprnn.conv.1.weight"] = t.pop("params", "dprnn", "prelu", "negative_slope").reshape(1)
+    for bi, (name, _) in enumerate(config.branches):
+        src, dst = f"branch_{name}", f"branches.{bi}"
+        t.sd[f"{dst}.0.self_attn.in_proj_weight"] = t.pop("params", src, "transformer", "in_proj", "kernel").T
+        t.sd[f"{dst}.0.self_attn.in_proj_bias"] = t.pop("params", src, "transformer", "in_proj", "bias")
+        t.dense((src, "transformer", "out_proj"), f"{dst}.0.self_attn.out_proj")
+        for layer in ("linear1", "linear2"):
+            t.dense((src, "transformer", layer), f"{dst}.0.{layer}")
+        for layer in ("norm1", "norm2"):
+            _norm(t, (src, "transformer", layer), f"{dst}.0.{layer}")
+        t.sd[f"{dst}.1.alpha"] = t.pop("params", src, "pool", "alpha")
+        t.dense((src, "linear1"), f"{dst}.2.0")
+        t.sd[f"{dst}.2.1.weight"] = t.pop("params", src, "prelu", "negative_slope").reshape(1)
+        t.dense((src, "linear2"), f"{dst}.2.2")
+    return t.state_dict("SquimObjective")
+
+
+def squim_subjective_state_dict_from_jax(params: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
+    """Flax ``SquimSubjective`` params -> state dict of
+    ``vibravox_tpu_torch.models.squim.SquimSubjective`` of the same
+    ``config`` (the port's own keys: HF names under ``ssl_model.``).  The
+    backbone goes through ``wav2vec2_state_dict_from_jax``; its CTC head,
+    which JAX's features path never creates, is zeros, and an unused
+    ``masked_spec_embed`` is dropped."""
+    p = params["params"] if "params" in params else params
+    ssl = {k: v for k, v in p["ssl"].items() if k != "masked_spec_embed"}
+    hidden, vocab = config.ssl.hidden_size, config.ssl.vocab_size
+    ssl.setdefault("lm_head", {"kernel": np.zeros((hidden, vocab), np.float32), "bias": np.zeros((vocab,), np.float32)})
+    sd = {f"ssl_model.{k}": v for k, v in wav2vec2_state_dict_from_jax(ssl, config.ssl).items()}
+    t = _Leaves({"params": {k: v for k, v in p.items() if k != "ssl"}})
+    t.dense(("projector",), "projector")
+    t.dense(("att_pool", "linear1"), "predictor.att_pool_layer.linear1")
+    t.dense(("att_pool", "linear2"), "predictor.att_pool_layer.linear2")
+    t.dense(("mos_head",), "predictor.mos_layer")
+    sd.update(t.state_dict("SquimSubjective head"))
+    return sd

@@ -29,7 +29,8 @@ forward and K4 backward.
 ``eval_step`` is the JAX ``eval_step`` (the reference's
 ``common_eval_step``): the generator's float32 forward without gradients,
 both networks' atomic losses against the reference, and the outputs that
-``eval_metrics`` (``SEMetrics``: SI-SDR and STOI at 16 kHz) reads.  On the
+``eval_metrics`` (``SEMetrics``: SI-SDR and STOI at 16 kHz, and the SQUIM
+metrics when ``$VIBRAVOX_SQUIM_DIR`` holds their weights) reads.  On the
 GPU it runs K1 (six calls a forward) and K3 (the STFT loss), no K2 or K4.
 """
 
@@ -145,7 +146,7 @@ class EBENTask:
         self.device = resolve_device(self.device)
         self.generator.to(self.device)
         self.discriminator.to(self.device)
-        self._se_metrics = SEMetrics(self.sample_rate)
+        self._se_metrics = SEMetrics(self.sample_rate, device=self.device)
 
     def eval_metrics(self, outputs: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """SE metrics at 16 kHz (ref ``base_se.py:67-106``)."""

@@ -85,7 +85,7 @@ class RegressiveMimiTask:
         for name, child in model.named_children():
             child.requires_grad_(name in ENCODER_SIDE)
         self.optimizer = materialise(self.optimizer)
-        self._se_metrics = SEMetrics(self.sample_rate)
+        self._se_metrics = SEMetrics(self.sample_rate, device=self.device)
 
     def init_state(self, seed: int = 0) -> MimiTrainState:
         """Step 0, a fresh Adam over the encoder side, and the frozen copy of
