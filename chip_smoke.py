@@ -187,7 +187,31 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     and ``noresqa_mos`` finite (on the noisy CLI's reference-free batches
     too), the K1-K4 launches equal to those phases' tests, the test
     seconds a batch split into SQUIM and the rest;
-33. the ``kernels`` line (all four kernels), then the result line.
+33. dp_parity: this slice's main path, the parallel layer.  Two processes
+    share the card over gloo (NCCL refuses two ranks on one device) and
+    run the full-width eben.yaml step through ``DataParallel`` on 16 rows
+    each of a global batch of 32 x 2.5 s: in float32 with SGD it equals
+    the one-process b32 step at train_parity's bars; then bf16 Adam steps
+    at two ranks (step ms p10-p90, the gradient all-reduce's ms and bytes
+    a step, K1-K4 6 / 6 / 6 / 6 a step on each rank, counted in the
+    ranks); then ``DataParallel`` at world size 1 over NCCL against the
+    plain step in one process, the wrapper's own ms;
+34. fsdp_tp: two gloo ranks on the card (gloo's CUDA collectives carry
+    FSDP2's and DTensor's, checked on the H100): the full-width
+    wav2vec2-base STP step (b8 x 3 s, bf16) through plain DP and with
+    FSDP2, and the full-width Mimi step (b32 x 2 s, bf16) on a model axis
+    of two, each against the one-process step at mimi_parity's bf16 bars
+    (loss 1e-2, update 5e-2 of scale), each rank's peak memory and
+    parameter bytes beside plain DP's;
+35. cli_dp: ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m vibravox_tpu_torch.run`` with the EBEN CLI over
+    NCCL and the default ``trainer.mesh``: fit, test("last"), a resumed
+    epoch and its test;
+36. the ``kernels`` line (all four kernels), then the result line.
+
+A rank of phases 33-34 is ``python3 chip_smoke.py --worker <kind>`` with
+the torchrun variables set (``run_workers``); a rank that fails or runs
+past its timeout stops every rank and fails the phase.
 
 Phases 3, 7 and 29 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
@@ -198,6 +222,7 @@ hand-written kernels that its run made (``cuda_trace``).
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import json
 import math
@@ -3209,10 +3234,475 @@ def phase_cli_squim(squim_dir: str, cli_dir: str, noisy_dir: str, cli: dict, noi
     return out
 
 
+# ---------------------------------------------------------------------------
+# the parallel layer: ranks as processes that share the card
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_WARMUP, DP_STEPS, DP_COLLECTIVE_STEPS = 2, 8, 3
+OVERHEAD_WARMUP, OVERHEAD_ROUNDS, OVERHEAD_STEPS = 2, 4, 3
+FSDP_STP_T = 48000  # 3 s, 149 frames
+WORKER_TIMEOUT_S = 420
+# cli_dp's cut of CLI_ARGS: 32 utterances (one step an epoch), one validation and one test batch
+CLI_DP_CUT = ("++lightning_datamodule.synthetic_size=32", "++trainer.limit_val_batches=1",
+              "++trainer.limit_test_batches=1")
+GLOO_NOTE = ("two processes share one H100 over gloo, whose collectives stage CUDA tensors through the "
+             "host: these times say nothing of NCCL's")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(kind: str, world: int, backend: str, timeout: float = WORKER_TIMEOUT_S) -> list:
+    """``world`` ranks of ``python chip_smoke.py --worker kind`` (rank,
+    world size, a localhost rendezvous and the backend in the torchrun
+    variables), each rank's result in rank order.  A rank that exits
+    non-zero, or any rank still running after ``timeout`` seconds, stops
+    every rank and fails the phase."""
+    with tempfile.TemporaryDirectory(prefix=f"vibravox_{kind}_") as tmp:
+        port, procs, logs = free_port(), [], []
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), VIBRAVOX_DIST_BACKEND=backend,
+                       VIBRAVOX_WORKER_OUT=tmp)
+            logs.append(open(Path(tmp) / f"rank{rank}.log", "w"))
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker", kind],
+                                          env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline, failed = time.monotonic() + timeout, None
+        try:
+            while failed is None and any(p.poll() is None for p in procs):
+                failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for log in logs:
+                log.close()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            tails = {r: (Path(tmp) / f"rank{r}.log").read_text()[-3000:] for r in range(world)}
+            why = f"rank {failed} failed" if failed is not None else f"a rank ran past {timeout} s"
+            raise AssertionError(f"{kind} over {world} {backend} ranks: {why}, exit codes {codes}; logs {tails}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def worker_main(kind: str) -> int:
+    """One rank of a ``run_workers`` phase: joins the process group from
+    the torchrun variables, runs ``WORKERS[kind]`` and saves its result."""
+    import faulthandler
+
+    from vibravox_tpu_torch.parallel.distributed import initialize_distributed
+
+    faulthandler.enable()  # a crash in native code leaves its Python stack in the rank's log
+    initialize_distributed("cuda")
+    try:
+        out = WORKERS[kind]()
+        torch.save(out, Path(os.environ["VIBRAVOX_WORKER_OUT"]) / f"rank{os.environ['RANK']}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def host(tree):
+    """Tensors to the CPU, floats for 0-dim ones."""
+    if isinstance(tree, torch.Tensor):
+        return float(tree) if tree.dim() == 0 else tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: host(v) for k, v in tree.items()}
+    return tree
+
+
+def dp_batch(b: int, seed: int) -> dict:
+    """A global EBEN batch of ``b`` 2.5 s crops (CPU): noise x 0.1 airborne,
+    half of it plus a little noise body-conducted."""
+    rng = np.random.default_rng(seed)
+    ref = rng.standard_normal((b, TRAIN_T, 1)).astype(np.float32) * 0.1
+    noise = rng.standard_normal((b, TRAIN_T, 1)).astype(np.float32) * 0.01
+    return {"audio_body_conducted": torch.from_numpy(ref * 0.5 + noise), "audio_airborne": torch.from_numpy(ref)}
+
+
+def my_rows(batch: dict, dp) -> dict:
+    """This data rank's rows of a global batch, on the card."""
+    n = next(iter(batch.values())).shape[0] // dp.data_size
+    return {k: v[dp.data_rank * n:(dp.data_rank + 1) * n].cuda() for k, v in batch.items()}
+
+
+def free_card() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def worker_dp_parity() -> dict:
+    """A dp_parity rank: the float32 SGD step on its 16 rows of the global
+    batch, then bf16 Adam steps timed (the K1-K4 counts reset just before
+    them and read just after), then steps whose gradient all-reduce is
+    timed (each synchronised on both sides)."""
+    from vibravox_tpu_torch.parallel.mesh import DataParallel, MeshConfig, build_mesh
+
+    torch.manual_seed(0)
+    task = make_task("cuda", small=False, optimizer=sgd(1e-2))
+    dp = DataParallel(task, build_mesh(MeshConfig(data=DP_RANKS), "cuda"))
+    state = dp.init_state(0)
+    reset_counts()
+    state, logs = dp.train_step(state, my_rows(dp_batch(TRAIN_B, 7), dp))
+    torch.cuda.synchronize()
+    out = {"rank": dp.data_rank, "mesh": [dp.data_size, dp.model_size], "backend": torch.distributed.get_backend(),
+           "parity_logs": host(logs), "parity_launches": read_counts()}
+    full = dp.full_state_dict(state)
+    if dp.data_rank == 0:
+        out["parity_state"] = {k: host(full[k]) for k in ("generator", "discriminator")}
+    del task, dp, state, full
+    free_card()
+
+    torch.manual_seed(0)
+    task = make_task("cuda", small=False, optimizer=adam(3e-4, betas=(0.5, 0.9)), compute_dtype="bfloat16")
+    dp = DataParallel(task, build_mesh(MeshConfig(data=DP_RANKS), "cuda"))
+    state = dp.init_state(0)
+    rows = my_rows(dp_batch(TRAIN_B, 8), dp)
+    logged = []
+
+    def step():
+        logged.append(host(dp.train_step(state, rows)[1]))
+
+    timed_calls(step, DP_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    dp.allreduce_bytes = 0
+    reset_counts()
+    ms = timed_calls(step, DP_STEPS)
+    counts = read_counts()
+    allreduce_bytes = dp.allreduce_bytes
+    dp.time_collectives, dp.allreduce_seconds = True, 0.0
+    ms_timed = timed_calls(step, DP_COLLECTIVE_STEPS)
+    out.update(step_ms=ms, launches=counts, allreduce_bytes_per_step=allreduce_bytes / DP_STEPS,
+               allreduce_ms_per_step=1e3 * dp.allreduce_seconds / DP_COLLECTIVE_STEPS,
+               steps_with_timed_allreduce_ms=ms_timed,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               losses_finite=all(math.isfinite(v) for lg in logged for v in lg.values()),
+               grad_params=sum(p.numel() for p in task.generator.parameters())
+               + sum(p.numel() for p in task.discriminator.parameters()))
+    return out
+
+
+def worker_dp_overhead() -> dict:
+    """One NCCL rank: the bf16 b32 step of the train phase called plainly
+    and through ``DataParallel`` (world size 1), in alternating rounds of
+    synchronised steps on the same task and state."""
+    from vibravox_tpu_torch.parallel.mesh import DataParallel, MeshConfig, build_mesh
+
+    torch.manual_seed(0)
+    task = make_task("cuda", small=False, optimizer=adam(3e-4, betas=(0.5, 0.9)), compute_dtype="bfloat16")
+    dp = DataParallel(task, build_mesh(MeshConfig(), "cuda"))
+    state = dp.init_state(0)
+    batch = {k: v.cuda() for k, v in dp_batch(TRAIN_B, 8).items()}
+    plain, wrapped = [], []
+    timed_calls(lambda: task.train_step(state, batch), OVERHEAD_WARMUP)
+    timed_calls(lambda: dp.train_step(state, batch), OVERHEAD_WARMUP)
+    for _ in range(OVERHEAD_ROUNDS):
+        plain += timed_calls(lambda: task.train_step(state, batch), OVERHEAD_STEPS)
+        wrapped += timed_calls(lambda: dp.train_step(state, batch), OVERHEAD_STEPS)
+    return {"backend": torch.distributed.get_backend(), "world": dp.world, "mesh": [dp.data_size, dp.model_size],
+            "plain_ms": plain, "data_parallel_ms": wrapped}
+
+
+def eben_parity(ref: dict, got: dict, before: dict) -> tuple:
+    """train_parity's bars between two updates of both networks: the worst
+    tensor's distance over its update, the tensors out of 1e-2 of their
+    update."""
+    worst, bad = 0.0, []
+    for net in ("generator", "discriminator"):
+        for k, b0 in before[net].items():
+            if "pqmf." in k:
+                continue
+            diff = (got[net][k] - ref[net][k]).norm().item()
+            step = (ref[net][k] - b0).norm().item()
+            if diff > 1e-2 * step + 1e-7:
+                bad.append(f"{net}.{k}")
+            if step > 0:
+                worst = max(worst, diff / step)
+    return worst, bad
+
+
+def phase_dp_parity(train: dict) -> dict:
+    """This slice's main path.  Two processes share the card over gloo and
+    run the full-width eben.yaml GAN step through ``DataParallel`` on 16
+    rows each of a global batch of 32 x 2.5 s crops.  In float32 with SGD
+    the step equals the one-process b32 step on the card at train_parity's
+    bars (losses 1e-4 relative, every tensor within 1e-2 of its update).
+    Then bf16 Adam steps at two ranks: step ms (median, p10-p90), the
+    gradient all-reduce's ms and bytes a step, K1-K4 launches a step on
+    each rank (6 / 6 / 6 / 6, the counts reset just before and read just
+    after the timed steps in each rank).  Then ``DataParallel`` at world
+    size 1 over NCCL against the plain step in the same process: the
+    wrapper's own ms, beside the train phase's step."""
+    free_card()
+    torch.manual_seed(0)
+    task = make_task("cuda", small=False, optimizer=sgd(1e-2))
+    before = {"generator": host(task.generator.state_dict()), "discriminator": host(task.discriminator.state_dict())}
+    state = task.init_state(0)
+    _, ref_logs = task.train_step(state, {k: v.cuda() for k, v in dp_batch(TRAIN_B, 7).items()})
+    ref = {"generator": host(task.generator.state_dict()), "discriminator": host(task.discriminator.state_dict())}
+    ref_logs = host(ref_logs)
+    del task, state
+    free_card()
+
+    ranks = run_workers("dp_parity", DP_RANKS, "gloo")
+    got = ranks[0]
+    loss_err = max(abs(got["parity_logs"][k] - v) / max(abs(v), 1e-12) for k, v in ref_logs.items())
+    worst, bad = eben_parity(ref, got["parity_state"], before)
+    per_step = [{k: v / DP_STEPS for k, v in r["launches"].items()} for r in ranks]
+    out = {"phase": "dp_parity", "ranks": DP_RANKS, "backend": got["backend"], "global_batch": TRAIN_B,
+           "rows_per_rank": TRAIN_B // DP_RANKS, "T": TRAIN_T, "note": GLOO_NOTE,
+           "parity": {"dtype": "float32", "optimizer": "sgd 1e-2", "losses_max_rel_err": loss_err,
+                      "losses_tol": 1e-4, "params_max_diff_over_update": worst, "params_tol": 1e-2,
+                      "params_out_of_tol": bad, "launches_by_rank": [r["parity_launches"] for r in ranks]},
+           "bf16": [{"rank": r["rank"], "step_ms": r["step_ms"], "step_ms_median": float(np.median(r["step_ms"])),
+                     "step_ms_p10": float(np.percentile(r["step_ms"], 10)),
+                     "step_ms_p90": float(np.percentile(r["step_ms"], 90)),
+                     "launches": r["launches"], "launches_per_step": p,
+                     "allreduce_ms_per_step": r["allreduce_ms_per_step"],
+                     "allreduce_bytes_per_step": r["allreduce_bytes_per_step"],
+                     "steps_with_timed_allreduce_ms": r["steps_with_timed_allreduce_ms"],
+                     "max_memory_allocated_gib": r["max_memory_allocated_gib"]}
+                    for r, p in zip(ranks, per_step)],
+           "grad_params": got["grad_params"]}
+    one = run_workers("dp_overhead", 1, "nccl")[0]
+    plain, wrapped = float(np.median(one["plain_ms"])), float(np.median(one["data_parallel_ms"]))
+    out["world_size_1"] = {"backend": one["backend"], "mesh": one["mesh"], "plain_step_ms_median": plain,
+                           "data_parallel_step_ms_median": wrapped, "wrapper_ms": wrapped - plain,
+                           "plain_ms": one["plain_ms"], "data_parallel_ms": one["data_parallel_ms"],
+                           "train_phase_step_ms_median": train["step_ms_median"]}
+    emit(out)
+    if not loss_err <= 1e-4 or bad:
+        raise AssertionError(f"the two-rank step differs from the one-process step: losses {loss_err}, {bad}")
+    if not all(r["losses_finite"] for r in ranks):
+        raise AssertionError("a loss of the two-rank bf16 steps is not finite")
+    if any(r["parity_launches"] != {"K1": 6, "K2": 6, "K3": 6, "K4": 6} for r in ranks):
+        raise AssertionError(f"kernel launches of the parity step: {[r['parity_launches'] for r in ranks]}")
+    if any(p != {"K1": 6, "K2": 6, "K3": 6, "K4": 6} for p in per_step):
+        raise AssertionError(f"kernel launches a step on the ranks: {per_step}")
+    return out
+
+
+def stp_fsdp_task():
+    torch.manual_seed(0)
+    return Wav2Vec2STPTask(wav2vec2_for_ctc=wav2vec2_for_ctc_from_config(seed=0, device="cuda"),
+                           optimizer=sgd(1e-2), compute_dtype="bfloat16", device="cuda")
+
+
+def stp_fsdp_batch() -> dict:
+    rng = np.random.default_rng(5)
+    labels = rng.integers(0, 35, (STP_B, 24)).astype(np.int64)
+    labels[::2, 16:] = -100
+    return {"audio": torch.from_numpy(rng.standard_normal((STP_B, FSDP_STP_T)).astype(np.float32) * 0.1),
+            "phonemes_ids": torch.from_numpy(labels)}
+
+
+def mimi_tp_task():
+    torch.manual_seed(0)
+    return RegressiveMimiTask(mimi=Mimi(seed=0, compute_dtype="bfloat16", device="cuda"), optimizer=sgd(1e-2))
+
+
+def mimi_tp_batch() -> dict:
+    ref = torch.from_numpy(np.random.default_rng(0).standard_normal((MIMI_B, MIMI_T, 1)).astype(np.float32) * 0.1)
+    return {"audio_body_conducted": ref * 0.5, "audio_airborne": ref}
+
+
+def flat(sd: dict, keys) -> torch.Tensor:
+    return torch.cat([sd[k].float().flatten() for k in keys])
+
+
+def worker_fsdp_stp() -> dict:
+    """An fsdp_tp rank for STP (data=2): the bf16 SGD step on its 4 rows
+    of the global b8, through plain DP and then through FSDP2 (the leaves
+    ``fsdp_spec`` picks at its default 2**15 elements): the loss, the full
+    parameters after that step (rank 0), the peak memory of that step and
+    of three more, the parameter bytes each rank holds and the leaves
+    sharded."""
+    from vibravox_tpu_torch.parallel.mesh import DataParallel, MeshConfig, build_mesh
+
+    out = {"backend": torch.distributed.get_backend()}
+    for fsdp in (False, True):
+        free_card()
+        task = stp_fsdp_task()
+        dp = DataParallel(task, build_mesh(MeshConfig(data=DP_RANKS, fsdp=fsdp), "cuda"), fsdp=fsdp)
+        state = dp.init_state(0)
+        rows = my_rows(stp_fsdp_batch(), dp)
+        names = dict(task.wav2vec2_for_ctc.named_parameters())
+        local = dp.local_view(state).state_dict()["model"]
+        row = {"rank": dp.data_rank, "mesh": [dp.data_size, dp.model_size], "fsdp": dp.fsdp,
+               "param_bytes_held": sum(v.numel() * v.element_size() for k, v in local.items() if k in names),
+               "sharded_leaves": sorted(k for k, p in names.items() if type(p).__name__ == "DTensor")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, logs = dp.train_step(state, rows)
+        torch.cuda.synchronize()
+        row["loss"] = float(logs["train/ctc_loss"])
+        full = dp.full_state_dict(state)["model"]
+        if dp.data_rank == 0:
+            row["model_after_step"] = host(full)
+        row["later_steps_ms"] = timed_calls(lambda: dp.train_step(state, rows), 2)
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["fsdp" if fsdp else "plain"] = row
+        del task, dp, state, full, local
+    return out
+
+
+def worker_tp_mimi() -> dict:
+    """An fsdp_tp rank for Mimi (data=1, model=2): the bf16 SGD step of the
+    full-width codec on the whole b32 x 2 s batch, each rank holding half
+    of every transformer block: the loss, the full trainable parameters
+    after it (rank 0), three more steps' ms and the peak memory."""
+    from vibravox_tpu_torch.parallel.mesh import DataParallel, MeshConfig, build_mesh
+
+    task = mimi_tp_task()
+    dp = DataParallel(task, build_mesh(MeshConfig(data=1, model=DP_RANKS), "cuda"))
+    state = dp.init_state(0)
+    batch = {k: v.cuda() for k, v in mimi_tp_batch().items()}
+    split = sorted(n for n, m in task.mimi.named_modules() if getattr(m, "tp_attention", None) is not None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, logs = dp.train_step(state, batch)
+    torch.cuda.synchronize()
+    out = {"backend": torch.distributed.get_backend(), "rank": dp.model_rank, "mesh": [dp.data_size, dp.model_size],
+           "loss": float(logs["train/l1_latent_loss"]), "split_layers": split}
+    full = dp.full_state_dict(state)["model"]
+    if dp.model_rank == 0:
+        out["model_after_step"] = {k: v for k, v in host(full).items() if k.split(".")[0] in ENCODER_SIDE}
+    out["later_steps_ms"] = timed_calls(lambda: dp.train_step(state, batch), 3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def one_process_step(task, batch: dict, keys_from) -> tuple:
+    """(loss, parameters before, after, peak GiB) of one step in this process."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = keys_from(task)
+    before = host(model.state_dict())
+    state = task.init_state(0)
+    _, logs = task.train_step(state, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    return host(logs), before, host(model.state_dict()), torch.cuda.max_memory_allocated() / 2**30
+
+
+def update_err(before: dict, ref: dict, got: dict, keys) -> float:
+    """The W-rank update against the one-process update (SGD: lr times the
+    gradient), over the largest of the latter: the bf16 gradient bar."""
+    keys = [k for k in keys if not torch.equal(ref[k], before[k])]
+    return rel_err(flat(got, keys) - flat(before, keys), flat(ref, keys) - flat(before, keys))
+
+
+def phase_fsdp_tp() -> dict:
+    """FSDP2 and tensor parallelism on the card.  Two processes share it
+    over gloo, whose CUDA collectives carry FSDP2's all-gather and
+    reduce-scatter and DTensor's (checked on the H100, PERF.md).  STP: the
+    full-width wav2vec2-base bf16 step at b8 (3 s) through plain DP, then
+    with ``fsdp: true``; Mimi: the full-width bf16 codec step at b32 x 2 s
+    (as mimi_train) on a model axis of two.  Each against the one-process
+    step on the card at mimi_parity's bf16 bars (loss 1e-2 relative, the
+    update 5e-2 of scale; SGD, so the update is the gradient), with each
+    rank's peak memory beside plain DP's (for Mimi the one-process step's)."""
+    free_card()
+    logs, before, ref, ref_peak = one_process_step(stp_fsdp_task(), stp_fsdp_batch(), lambda t: t.wav2vec2_for_ctc)
+    free_card()
+    ranks = run_workers("fsdp_stp", DP_RANKS, "gloo")
+    stp = {"global_batch": STP_B, "T": FSDP_STP_T, "one_process_loss": logs["train/ctc_loss"],
+           "one_process_peak_gib": ref_peak}
+    for mode in ("plain", "fsdp"):
+        got = ranks[0][mode]
+        stp[mode] = {"loss": got["loss"], "loss_rel_err": abs(got["loss"] - logs["train/ctc_loss"])
+                     / abs(logs["train/ctc_loss"]),
+                     "update_err_over_scale": update_err(before, ref, got["model_after_step"], ref),
+                     "ranks": [{k: r[mode][k] for k in ("rank", "mesh", "fsdp", "peak_gib", "param_bytes_held",
+                                                        "later_steps_ms")} for r in ranks],
+                     "sharded_leaves": len(got["sharded_leaves"]),
+                     "sharded_examples": got["sharded_leaves"][:4]}
+    del before, ref
+    free_card()
+    mlogs, mbefore, mref, mref_peak = one_process_step(mimi_tp_task(), mimi_tp_batch(), lambda t: t.mimi)
+    trained = [k for k in mref if k.split(".")[0] in ENCODER_SIDE]
+    free_card()
+    mranks = run_workers("tp_mimi", DP_RANKS, "gloo")
+    m0 = mranks[0]
+    mimi = {"global_batch": MIMI_B, "T": MIMI_T, "one_process_loss": mlogs["train/l1_latent_loss"],
+            "one_process_peak_gib": mref_peak, "loss": m0["loss"],
+            "loss_rel_err": abs(m0["loss"] - mlogs["train/l1_latent_loss"]) / abs(mlogs["train/l1_latent_loss"]),
+            "update_err_over_scale": update_err(mbefore, mref, m0["model_after_step"], trained),
+            "split_layers": m0["split_layers"],
+            "ranks": [{k: r[k] for k in ("rank", "mesh", "peak_gib", "later_steps_ms")} for r in mranks]}
+    out = {"phase": "fsdp_tp", "ranks": DP_RANKS, "backend": ranks[0]["backend"], "degenerate_mesh": False,
+           "note": GLOO_NOTE, "loss_tol": MIMI_LOSS_TOL, "update_tol": MIMI_GRAD_TOL, "stp": stp, "mimi": mimi}
+    emit(out)
+    for name, row in (("STP plain DP", stp["plain"]), ("STP FSDP", stp["fsdp"]), ("Mimi TP", mimi)):
+        if not (row["loss_rel_err"] <= MIMI_LOSS_TOL and row["update_err_over_scale"] <= MIMI_GRAD_TOL):
+            raise AssertionError(f"{name} over two ranks differs from the one-process step: {row}")
+    if not (stp["fsdp"]["sharded_leaves"] > 0 and stp["plain"]["sharded_leaves"] == 0):
+        raise AssertionError(f"FSDP2 sharded {stp['fsdp']['sharded_leaves']} leaves")
+    if not mimi["split_layers"]:
+        raise AssertionError("no Mimi transformer layer was split over the model axis")
+    return out
+
+
+def phase_cli_dp(run_dir: str) -> dict:
+    """The path of a multi-GPU user: ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1 -m vibravox_tpu_torch.run`` with
+    CLI_ARGS (the EBEN CLI, ``logging=csv``, the default ``trainer.mesh``
+    of every process, over NCCL) cut to one step an epoch and one
+    validation and test batch (CLI_DP_CUT): fit two epochs and
+    test("last"), then a resumed third epoch and its test.  Each run's
+    wall; the progress, the checkpoints and the CSV's finite test metrics
+    are checked."""
+    args = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+            "-m", "vibravox_tpu_torch.run", *CLI_ARGS, *CLI_DP_CUT, f"++run_dir={run_dir}"]
+    runs = []
+    for epochs in (2, 3):
+        t0 = time.perf_counter()
+        done = subprocess.run(args + [f"++trainer.max_epochs={epochs}"], capture_output=True, text=True,
+                              timeout=WORKER_TIMEOUT_S, cwd=str(Path(__file__).resolve().parent))
+        wall = time.perf_counter() - t0
+        if done.returncode != 0:
+            raise AssertionError(f"torchrun exited {done.returncode}: {done.stderr[-4000:]}")
+        ckpt = Path(run_dir) / "checkpoints"
+        with open(Path(run_dir) / "csv" / "metrics.csv") as f:
+            rows = [r for r in csv.DictReader(f) if r.get("test/torchmetrics_stoi")]
+        runs.append({"epochs": epochs, "wall_s": wall,
+                     "trainer_state": json.loads((ckpt / "trainer_state.json").read_text()),
+                     "last": (ckpt / "last" / "state.pt").exists(),
+                     "test_metrics": {k: float(v) for k, v in rows[-1].items() if k.startswith("test/") and v}})
+    out = {"phase": "cli_dp", "nproc_per_node": 1, "backend": "nccl", "runs": runs}
+    emit(out)
+    if [r["trainer_state"] for r in runs] != [{"epoch": 1, "global_step": 2}, {"epoch": 2, "global_step": 3}]:
+        raise AssertionError(f"progress {[r['trainer_state'] for r in runs]}: the run did not resume at epoch 2")
+    for r in runs:
+        m = r["test_metrics"]
+        if not (r["last"] and all(math.isfinite(v) for v in m.values()) and 0 < m["test/torchmetrics_stoi"] <= 1):
+            raise AssertionError(f"the torchrun CLI's test: {r}")
+    return out
+
+
+WORKERS = {"dp_parity": worker_dp_parity, "dp_overhead": worker_dp_overhead, "fsdp_stp": worker_fsdp_stp,
+           "tp_mimi": worker_tp_mimi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--worker"]:  # one rank of a parallel phase (run_workers)
+        return worker_main(sys.argv[2])
 
     # The phases take several CUDA-only torch.profiler traces in one process,
     # and a trace can miss the kernels launched at its start (cuda_trace
@@ -3254,8 +3744,12 @@ def main() -> int:
             squim = {"parity": phase_squim_parity(squim_dir), "eval": phase_squim_eval(squim_dir),
                      "hub": phase_hub_enhance(),
                      "cli": phase_cli_squim(squim_dir, cli_dir, noisy_dir, cli, noisy)}
+    dp = phase_dp_parity(train)
+    phase_fsdp_tp()
+    with tempfile.TemporaryDirectory(prefix="vibravox_cli_dp_") as cli_dp_dir:
+        phase_cli_dp(cli_dp_dir)
     emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim))
+                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3286,7 +3780,7 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim) -> dict:
+                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
@@ -3295,7 +3789,8 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
     ``launches_by_path`` has it per path, the timed fit of the train phase
     included, the STP, Mimi and SQUIM paths, which run none of the four
     kernels, the hub enhancement script (K1 alone), the CLI tests with
-    SQUIM (K1 and K3), and the SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
+    SQUIM (K1 and K3), the dp_parity ranks' own counts (the timed bf16
+    steps, the float32 parity step), and the SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
     end's fft-512 times and bounds, per call at the b32 regime's shape and
     at a batch-1 trial).  K1's serving numbers (per forward, float32 and bfloat16, 1 s
     bucket, batch 8) and its float32 eval numbers (per eval forward of the
@@ -3323,7 +3818,9 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
                 "squim_parity": squim["parity"]["launches"][key], "squim_eval": squim["eval"]["launches"][key],
                 "hub_enhance": squim["hub"]["launches"][key],
                 "cli_squim_test": squim["cli"]["eben"]["launches"][key],
-                "cli_squim_noisybwe_test": squim["cli"]["noisybwe"]["launches"][key]}
+                "cli_squim_noisybwe_test": squim["cli"]["noisybwe"]["launches"][key],
+                "dp_parity_timed_steps_by_rank": [r["launches"][key] for r in dp["bf16"]],
+                "dp_parity_float32_step_by_rank": [r[key] for r in dp["parity"]["launches_by_rank"]]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]

@@ -202,6 +202,14 @@ def test_bfloat16_step_is_close_to_float32(jax_model, batch):
 
 @pytest.mark.parametrize("kw", [{"accumulate_grad_batches": 2}, {"flatten_optimizer": True}])
 def test_task_refuses_what_is_not_ported(jax_model, kw):
+    """``accumulate_grad_batches`` is ported (Adam inside ``MultiSteps``);
+    ``flatten_optimizer``, an optax knob, is refused."""
+    if "accumulate_grad_batches" in kw:
+        from vibravox_tpu_torch.core.optim import MultiSteps
+
+        opt = _port_task(jax_model, adam(), **kw).init_state(0).optimizer
+        assert isinstance(opt, MultiSteps) and opt.every_k == 2 and isinstance(opt.inner, torch.optim.Adam)
+        return
     with pytest.raises(NotImplementedError):
         _port_task(jax_model, adam(), **kw)
 

@@ -26,7 +26,9 @@ from vibravox_tpu_torch.core.callbacks import ModelSummary
 from vibravox_tpu_torch.core.checkpoint import CheckpointManager
 from vibravox_tpu_torch.core.guard import AnomalyDetected, FailureGuard
 from vibravox_tpu_torch.core.logging import CSVLogger, MultiLogger, TensorBoardLogger
-from vibravox_tpu_torch.core.loop import Trainer, _check_mesh
+from vibravox_tpu_torch.core.loop import Trainer, parallel_for
+from vibravox_tpu_torch.core.optim import MultiSteps
+from vibravox_tpu_torch.parallel.mesh import MeshConfig
 from vibravox_tpu_torch.core.optim import adam
 from vibravox_tpu_torch.core.profiler import StepTimer, trace_window
 from vibravox_tpu_torch.data.bwe import BWEDataModule
@@ -318,9 +320,17 @@ def test_composed_optimizers_are_the_configured_adams():
 
 
 @pytest.mark.parametrize("kw,error", [({"push_to_hub_after_testing": True}, NotImplementedError),
-                                      ({"accumulate_grad_batches": 2}, NotImplementedError),
+                                      ({"accumulate_grad_batches": 2}, None),
                                       ({"track_grad_norm": 1}, ValueError)])
 def test_task_refuses_what_is_not_ported(kw, error):
+    """``accumulate_grad_batches`` is ported (``optax.MultiSteps``): both
+    optimizers accumulate over k micro-batches; the rest is refused."""
+    if error is None:
+        state = _task(0, **kw).init_state(0)
+        for opt in (state.generator_optimizer, state.discriminator_optimizer):
+            assert isinstance(opt, MultiSteps) and opt.every_k == 2
+            assert isinstance(opt.inner, torch.optim.Adam)
+        return
     with pytest.raises(error):
         _task(0, **kw)
 
@@ -341,13 +351,20 @@ def test_track_grad_norm_logs_each_networks_gradient_norm(ratio):
 
 
 @pytest.mark.parametrize("mesh,ok", [(None, True), ({"data": -1, "model": 1}, True), ({"data": 1}, True),
-                                     ({"data": 2}, False), ({"model": 2}, False), ({"fsdp": True}, False)])
+                                     ({"data": 2}, False), ({"model": 2}, False), ({"fsdp": True}, True)])
 def test_mesh_is_accepted_for_one_device_only(mesh, ok):
+    """One process takes a mesh that covers it (``data: -1`` is every
+    process; FSDP over one data rank shards nothing); a mesh of more ranks
+    raises, and resolves once the world has them."""
+    config = MeshConfig(**(mesh or {}))
     if ok:
-        _check_mesh(mesh, torch.device("cpu"))
+        assert config.resolve(1) == {"data": 1, "model": 1}
+        dp = parallel_for(_task(0), mesh)
+        assert (dp.world, dp.data_size, dp.model_size, dp.fsdp) == (1, 1, 1, False)
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            _check_mesh(mesh, torch.device("cpu"))
+        with pytest.raises(ValueError, match="does not cover 1 processes"):
+            config.resolve(1)
+        assert config.resolve(2) == {"data": mesh.get("data", 1), "model": mesh.get("model", 1)}
 
 
 def test_loggers(tmp_path, monkeypatch):

@@ -15,6 +15,11 @@ A save never leaves a torn checkpoint: each is written under a temporary
 name and renamed into place.  ``last`` is replaced by two renames (``last``
 to ``.last-old``, the new one to ``last``); a run cut between them finds
 ``.last-old`` and takes it back when the manager is next made.
+
+In a multi-process run every rank calls ``save`` (the state's
+``state_dict()`` may gather sharded tensors, a collective), only rank 0
+writes, and the ranks meet at a barrier after each save and after the
+manager's start-up cleanup; every rank reads a checkpoint to restore.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device
+from vibravox_tpu_torch.parallel import distributed
 
 __all__ = ["CheckpointManager"]
 
@@ -66,6 +72,12 @@ class CheckpointManager:
         self._index: Dict[str, float] = {}
         if self._index_path.exists():
             self._index = json.loads(self._index_path.read_text())
+        self._writer = distributed.process_index() == 0
+        if self._writer:
+            self._clean()
+        _barrier()
+
+    def _clean(self) -> None:
         old = self.dirpath / ".last-old"
         if old.exists():
             if (self.dirpath / "last").exists():
@@ -80,13 +92,13 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> Path:
         return self.dirpath / f"step_{step:08d}"
 
-    def _write_dir(self, path: Path, state: Any, trainer_state: Optional[Dict[str, Any]]) -> Path:
+    def _write_dir(self, path: Path, sd: Dict[str, Any], trainer_state: Optional[Dict[str, Any]]) -> Path:
         """The checkpoint under a temporary name beside ``path``; returns it."""
         tmp = path.with_name(f".{path.name}.tmp")
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir()
-        torch.save(state.state_dict(), tmp / _STATE)
+        torch.save(sd, tmp / _STATE)
         if trainer_state is not None:
             (tmp / _PROGRESS).write_text(json.dumps(trainer_state))
         return tmp
@@ -94,9 +106,32 @@ class CheckpointManager:
     def save(self, state: Any, step: int, metrics: Optional[Dict[str, float]] = None,
              trainer_state: Optional[Dict[str, Any]] = None) -> None:
         """Save ``last`` and, when the monitored metric qualifies, a top-k entry."""
+        value = None
+        if self.monitor is not None and metrics and self.monitor in metrics:
+            value = float(metrics[self.monitor])
+            worse = (min if self.mode == "max" else max)(self._index.values(), default=None)
+            if not (len(self._index) < self.save_top_k or worse is None or (
+                    value > worse if self.mode == "max" else value < worse)):
+                value = None
+        if not self.save_last and value is None:
+            return
+        sd = state.state_dict()
+        stale = []
+        if value is not None:  # every rank keeps the index, so all decide alike
+            self._index[str(step)] = value
+            ranked = sorted(self._index.items(), key=lambda kv: kv[1], reverse=(self.mode == "max"))
+            stale = [int(k) for k, _ in ranked[self.save_top_k:]]
+            for k in stale:
+                del self._index[str(k)]
+        if self._writer:
+            self._write(sd, step, value, stale, trainer_state)
+        _barrier()
+
+    def _write(self, sd: Dict[str, Any], step: int, value: Optional[float], stale: list,
+               trainer_state: Optional[Dict[str, Any]]) -> None:
         if self.save_last:
             last, old = self.dirpath / "last", self.dirpath / ".last-old"
-            tmp = self._write_dir(last, state, trainer_state)
+            tmp = self._write_dir(last, sd, trainer_state)
             if last.exists():
                 os.rename(last, old)
             os.rename(tmp, last)
@@ -105,25 +140,15 @@ class CheckpointManager:
             if trainer_state is not None:
                 _write_json(self.dirpath / _PROGRESS, trainer_state)
 
-        if self.monitor is None or not metrics or self.monitor not in metrics:
-            return
-        value = float(metrics[self.monitor])
-        worse = (min if self.mode == "max" else max)(self._index.values(), default=None)
-        if len(self._index) < self.save_top_k or worse is None or (
-            value > worse if self.mode == "max" else value < worse
-        ):
+        if value is not None:
             path = self._step_dir(step)
-            tmp = self._write_dir(path, state, None)
+            tmp = self._write_dir(path, sd, None)
             if path.exists():
                 shutil.rmtree(path)
             os.rename(tmp, path)
-            self._index[str(step)] = value
-            ranked = sorted(self._index.items(), key=lambda kv: kv[1], reverse=(self.mode == "max"))
-            for stale_step, _ in ranked[self.save_top_k:]:
-                stale = self._step_dir(int(stale_step))
-                if stale.exists():
-                    shutil.rmtree(stale)
-                del self._index[stale_step]
+            for stale_step in stale:
+                if self._step_dir(stale_step).exists():
+                    shutil.rmtree(self._step_dir(stale_step))
             _write_json(self._index_path, self._index)
 
     # ------------------------------------------------------------------ #
@@ -162,3 +187,10 @@ class CheckpointManager:
             if path.exists():
                 return json.loads(path.read_text())
         return {}
+
+
+def _barrier() -> None:
+    if distributed.is_initialized():
+        import torch.distributed as dist
+
+        dist.barrier()

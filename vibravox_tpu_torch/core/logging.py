@@ -6,6 +6,8 @@ with the same surface the tasks rely on: scalars (namespaced
 ``stage/metric/dataloader``), audio samples, and free text.
 ``TensorBoardLogger`` imports ``tensorboardX`` when it is made, and raises
 ``ImportError`` where that package is missing; use ``logging=csv`` there.
+In a multi-process run the writers write on rank 0 only: on the other
+ranks they are made inert and create no file.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+
+from vibravox_tpu_torch.parallel.distributed import process_index
 
 __all__ = ["Logger", "TensorBoardLogger", "CSVLogger", "MultiLogger", "NoOpLogger"]
 
@@ -49,15 +53,21 @@ class TensorBoardLogger(Logger):
     def __init__(self, save_dir: str = "tensorboard/", log_every_n_steps: int = 100):
         from tensorboardX import SummaryWriter
 
-        Path(save_dir).mkdir(parents=True, exist_ok=True)
-        self.writer = SummaryWriter(logdir=str(save_dir))
         self.log_every_n_steps = log_every_n_steps
+        self.writer = None
+        if process_index() == 0:
+            Path(save_dir).mkdir(parents=True, exist_ok=True)
+            self.writer = SummaryWriter(logdir=str(save_dir))
 
     def log_scalars(self, scalars: Dict[str, float], step: int) -> None:
+        if self.writer is None:
+            return
         for key, value in scalars.items():
             self.writer.add_scalar(key, float(value), step)
 
     def log_audio(self, tag: str, audio: np.ndarray, step: int, sample_rate: int) -> None:
+        if self.writer is None:
+            return
         # encode PCM16 WAV with the stdlib (tensorboardX's own encoder needs
         # the optional soundfile dependency) and emit the summary proto directly
         import io
@@ -85,13 +95,16 @@ class TensorBoardLogger(Logger):
         )
 
     def log_text(self, tag: str, text: str, step: int = 0) -> None:
-        self.writer.add_text(tag, text, step)
+        if self.writer is not None:
+            self.writer.add_text(tag, text, step)
 
     def flush(self) -> None:
-        self.writer.flush()
+        if self.writer is not None:
+            self.writer.flush()
 
     def close(self) -> None:
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.close()
 
 
 class CSVLogger(Logger):
@@ -100,7 +113,9 @@ class CSVLogger(Logger):
 
     def __init__(self, save_dir: str = "csv/", log_every_n_steps: int = 100):
         self.dir = Path(save_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self._writer = process_index() == 0
+        if self._writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.path = self.dir / "metrics.csv"
         self.log_every_n_steps = log_every_n_steps
         self._fieldnames = ["step"]
@@ -115,9 +130,12 @@ class CSVLogger(Logger):
         self.flush()
 
     def log_text(self, tag: str, text: str, step: int = 0) -> None:
-        (self.dir / f"{tag.replace('/', '_')}.txt").write_text(text)
+        if self._writer:
+            (self.dir / f"{tag.replace('/', '_')}.txt").write_text(text)
 
     def flush(self) -> None:
+        if not self._writer:
+            return
         with open(self.path, "w", newline="") as f:
             writer = csv.DictWriter(f, fieldnames=self._fieldnames)
             writer.writeheader()

@@ -10,12 +10,20 @@ reference's post-fit test pass.  The failure guard restores ``last`` after a
 non-finite step, and SIGTERM / SIGUSR1 save ``last`` and end the fit.
 
 The trainer runs on the task's device, which must exist when a fit or test
-starts (a task made for the GPU raises without one).  Only a one-device
-mesh is ported: a mesh over more devices is ROADMAP Queue 1 item 13.
+starts (a task made for the GPU raises without one).  ``mesh``
+(``trainer.mesh``: ``data``, ``model``, ``fsdp``, ``fsdp_min_size``) lays
+the process group out (``parallel/mesh.py``); every step, evaluation and
+checkpoint goes through the task's ``DataParallel``, which is trivial for
+one process.  Over several ranks only rank 0 logs and writes checkpoints
+(full tensors, the ranks meeting around each save); the ranks agree every
+step on stopping (a rank out of batches, a preemption signal on any rank),
+so all stop after the same step, and on the guard's verdict.
 """
 
 from __future__ import annotations
 
+import itertools
+import signal
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -27,6 +35,7 @@ from vibravox_tpu_torch.core.guard import AnomalyDetected, FailureGuard
 from vibravox_tpu_torch.core.logging import Logger, NoOpLogger
 from vibravox_tpu_torch.core.profiler import StepTimer, trace_window
 from vibravox_tpu_torch.device import resolve_device
+from vibravox_tpu_torch.parallel.mesh import DataParallel, MeshConfig, build_mesh
 
 __all__ = ["Trainer"]
 
@@ -35,27 +44,21 @@ def _as_float_logs(logs: Dict[str, Any]) -> Dict[str, float]:
     return {k: float(v) for k, v in logs.items()}
 
 
-def _split_batch(batch: Dict[str, Any], device: torch.device) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The batch's tensors, sent to ``device``, and its host-only fields
-    (the STP collate's ``phonemes_str`` list, SPKV's speaker ids), kept on
-    the host as the JAX mesh's ``split_batch`` keeps them."""
-    arrays = {k: v.to(device, non_blocking=True) for k, v in batch.items() if isinstance(v, torch.Tensor)}
-    return arrays, {k: v for k, v in batch.items() if not isinstance(v, torch.Tensor)}
+_split_batch = DataParallel.split_batch
 
 
-def _check_mesh(mesh: Optional[Dict[str, Any]], device: torch.device) -> None:
-    """Accepts the configs' ``{data: -1, model: 1}`` on one device; raises
-    for a mesh that asks for more (``data: -1`` is every visible device)."""
-    mesh = dict(mesh or {})
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    model = max(1, int(mesh.get("model", 1)))
-    data = int(mesh.get("data", -1))
-    data = data if data > 0 else visible // model
-    if model != 1 or data != 1 or mesh.get("fsdp"):
-        raise NotImplementedError(
-            f"the port trains on one device; mesh {mesh} asks for {data} x {model} devices "
-            f"({visible} visible) or FSDP (multi-device training is ROADMAP Queue 1 item 13; "
-            "set trainer.mesh.data=1)")
+def parallel_for(task, mesh: Optional[Dict[str, Any]] = None) -> DataParallel:
+    """The task's ``DataParallel`` over the process group as ``mesh`` lays
+    it out, made at the first call (it places the task's networks) and kept
+    on the task."""
+    dp = getattr(task, "_data_parallel", None)
+    if dp is None:
+        config = MeshConfig(**dict(mesh or {}))
+        device = resolve_device(task.device)
+        dp = DataParallel(task, build_mesh(config, device.type), fsdp=config.fsdp,
+                          fsdp_min_size=config.fsdp_min_size)
+        task._data_parallel = dp
+    return dp
 
 
 class Trainer:
@@ -123,6 +126,7 @@ class Trainer:
         self.sync_every_step = sync_every_step
 
         self.state = None
+        self.parallel: Optional[DataParallel] = None  # the task's, from the first fit or test
         self.global_step = 0
         self.current_epoch = 0
         self._num_val_runs = 0
@@ -132,11 +136,9 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
 
-    def _setup(self, task) -> torch.device:
-        """The run's device (the task's), after the checks; applies
-        ``precision``."""
-        device = resolve_device(task.device)
-        _check_mesh(self.mesh, device)
+    def _setup(self, task) -> DataParallel:
+        """The task's ``DataParallel``; applies ``precision``."""
+        self.parallel = parallel_for(task, self.mesh)
         if self.precision is not None:
             p = str(self.precision)
             if p in ("32", "32-true"):
@@ -145,7 +147,7 @@ class Trainer:
                 task.compute_dtype = "bfloat16"
             else:
                 raise ValueError(f"unsupported precision {self.precision!r}")
-        return device
+        return self.parallel
 
     @staticmethod
     def _sync(device: torch.device) -> None:
@@ -157,14 +159,19 @@ class Trainer:
         self.logger.log_scalars(scalars, self.global_step)
 
     def _restore(self, task, which: str) -> None:
-        self.checkpoint.restore(self.state, which, device=task.device)
+        self.checkpoint.restore(self.parallel.checkpoint_view(self.state), which, device=task.device)
+
+    def _save(self, metrics: Dict[str, float], trainer_state: Dict[str, Any]) -> None:
+        """Every rank gathers the full state; rank 0 writes it."""
+        self.checkpoint.save(self.parallel.checkpoint_view(self.state), self.global_step, metrics,
+                             trainer_state=trainer_state)
 
     def fit(self, task, datamodule) -> None:
         datamodule.setup("fit")
         self._setup(task)
         train_loader = datamodule.train_dataloader()
         if self.state is None:
-            self.state = task.init_state(self.seed)
+            self.state = self.parallel.init_state(self.seed)
             if self.checkpoint is not None and self.checkpoint.has_last():
                 self._restore(task, "last")
                 progress = self.checkpoint.trainer_state()
@@ -208,11 +215,19 @@ class Trainer:
             preempted_mid_epoch = False
             stepped = False
             t_wait = epoch_t0
-            for i, batch in enumerate(train_loader):
+            batches = iter(train_loader)
+            for i in itertools.count():
                 if self.limit_train_batches is not None and i >= self.limit_train_batches:
                     break
-                if self._preempt_signum is not None:
+                batch = next(batches, None)
+                # every rank stops after the same step: when one runs out of
+                # batches, or one has the preemption signal
+                exhausted, preempted = self.parallel.agree_any(batch is None, self._preempt_signum is not None)
+                if exhausted:
+                    break
+                if preempted:
                     # no new step under a preemption deadline
+                    self._preempt_signum = self._preempt_signum or signal.SIGTERM
                     preempted_mid_epoch = True
                     break
                 if self.profile_dir and self.global_step == 8:
@@ -221,7 +236,7 @@ class Trainer:
                 t0 = time.perf_counter()
                 self.data_wait_seconds.append(t0 - t_wait)
                 timer.start()
-                self.state, logs = task.train_step(self.state, batch)
+                self.state, logs = self.parallel.train_step(self.state, batch)
                 timer.stop()
                 if self.sync_every_step:
                     self._sync(device)
@@ -243,7 +258,7 @@ class Trainer:
                     if should_log:
                         self._log(floated)
                     if self.failure_guard is not None:
-                        anomaly = self.failure_guard.scan(floated)
+                        anomaly = self.parallel.first_reason(self.failure_guard.scan(floated))
                         if anomaly is not None:
                             break
                 self.global_step += 1
@@ -255,9 +270,10 @@ class Trainer:
             # end-of-epoch barrier: the final step's logs and the state
             # itself, before a save can overwrite `last`
             if anomaly is None and self.failure_guard is not None and logs is not None:
-                anomaly = self.failure_guard.scan(_as_float_logs(logs))
+                anomaly = self.parallel.first_reason(self.failure_guard.scan(_as_float_logs(logs)))
             if anomaly is None and self.failure_guard is not None and stepped:
-                anomaly = self.failure_guard.scan_state(self.state)
+                local = self.parallel.local_view(self.state)  # rank-local shards: agree on the verdict
+                anomaly = self.parallel.first_reason(self.failure_guard.scan_state(local))
             if anomaly is not None:
                 epoch = self._recover(task, anomaly)
                 continue
@@ -265,10 +281,7 @@ class Trainer:
                 # saved with the previous epoch's marker, so the resubmitted
                 # job replays the interrupted epoch from its start
                 if stepped:
-                    self.checkpoint.save(
-                        self.state, self.global_step, {},
-                        trainer_state={"epoch": epoch - 1, "global_step": self.global_step},
-                    )
+                    self._save({}, {"epoch": epoch - 1, "global_step": self.global_step})
                 self.logger.log_text(
                     "preemption",
                     f"signal {self._preempt_signum}: checkpointed at epoch "
@@ -288,11 +301,9 @@ class Trainer:
                 val_loader = train_loader if self.overfit_batches else datamodule.val_dataloader()
                 val_metrics = self._evaluate(task, val_loader, "validation")
             if self.checkpoint is not None:
-                self.checkpoint.save(
-                    self.state, self.global_step, val_metrics,
-                    trainer_state={"epoch": epoch, "global_step": self.global_step},
-                )
-            if self._preempt_signum is not None:
+                self._save(val_metrics, {"epoch": epoch, "global_step": self.global_step})
+            if self.parallel.agree_any(self._preempt_signum is not None)[0]:
+                self._preempt_signum = self._preempt_signum or signal.SIGTERM
                 # the epoch completed and was saved as such: the resumed job
                 # starts the next one
                 self.logger.log_text(
@@ -310,8 +321,6 @@ class Trainer:
         self._preempt_signum = signum
 
     def _install_preemption_handlers(self) -> Dict[int, Any]:
-        import signal
-
         prev: Dict[int, Any] = {}
         for sig in (signal.SIGTERM, signal.SIGUSR1):
             try:
@@ -322,8 +331,6 @@ class Trainer:
 
     @staticmethod
     def _restore_signal_handlers(prev: Dict[int, Any]) -> None:
-        import signal
-
         for sig, handler in prev.items():
             signal.signal(sig, handler)
 
@@ -361,7 +368,9 @@ class Trainer:
         ``prepare_eval_batch(batch)`` before the batch is split into device
         tensors and host fields, ``on_eval_batch_end(outputs)`` after each
         step, and ``on_eval_epoch_end()`` after a loader, whose metrics join
-        the loader's."""
+        the loader's.  Over a mesh each rank evaluates its own batches and
+        the sums and batch counts are summed over ``data`` at each loader's
+        end: the means are over every rank's batches."""
         limit = self.limit_val_batches if stage == "validation" else self.limit_test_batches
         if limit == 0:  # Lightning's limit_*_batches=0: no pass, no loader workers
             return {}
@@ -369,41 +378,47 @@ class Trainer:
         if not isinstance(loaders, dict):
             loaders = {"": loaders}
         all_metrics: Dict[str, float] = {}
-        for dl_name, loader in loaders.items():
-            suffix = f"/{dl_name}" if dl_name else ""
-            sums: Dict[str, float] = {}
-            count = 0
-            for i, batch in enumerate(loader):
-                if limit is not None and i >= limit:
-                    break
-                if hasattr(task, "prepare_eval_batch"):
-                    batch = task.prepare_eval_batch(batch)
-                batch, host = _split_batch(batch, task.device)
-                outputs = task.eval_step(self.state, batch)
-                if host:
-                    outputs["host"] = host
-                logs = outputs.pop("logs", {})
-                metrics = task.eval_metrics(outputs) if hasattr(task, "eval_metrics") else {}
-                for k, v in {**_as_float_logs(logs), **metrics}.items():
-                    sums[k] = sums.get(k, 0.0) + v
-                if hasattr(task, "on_eval_batch_end"):
-                    task.on_eval_batch_end(outputs)
-                count += 1
-                if i < self.num_audio_logs:
-                    self._log_audio(task, outputs, stage, dl_name, i)
-                    if getattr(task, "last_decoded", None):
-                        pred, target = task.last_decoded
-                        self.logger.log_text(f"{stage}_{dl_name or 'main'}_{i}/decode",
-                                             f"pred: {pred}\ntarget: {target}", self._num_val_runs)
-            if count:
-                for k, v in sums.items():
-                    all_metrics[f"{stage}/{k}{suffix}"] = v / count
-            if count and hasattr(task, "on_eval_epoch_end"):
-                for k, v in task.on_eval_epoch_end().items():
-                    all_metrics[f"{stage}/{k}{suffix}"] = float(v)
+        with self.parallel.evaluation():
+            for dl_name, loader in loaders.items():
+                self._evaluate_loader(task, dl_name, loader, limit, stage, all_metrics)
         if all_metrics:
             self._log(all_metrics)
         return all_metrics
+
+    def _evaluate_loader(self, task, dl_name: str, loader, limit: Optional[int], stage: str,
+                         all_metrics: Dict[str, float]) -> None:
+        suffix = f"/{dl_name}" if dl_name else ""
+        sums: Dict[str, float] = {}
+        count = 0
+        for i, batch in enumerate(loader):
+            if limit is not None and i >= limit:
+                break
+            if hasattr(task, "prepare_eval_batch"):
+                batch = task.prepare_eval_batch(batch)
+            batch, host = _split_batch(batch, task.device)
+            outputs = self.parallel.eval_step(self.state, batch)
+            if host:
+                outputs["host"] = host
+            logs = outputs.pop("logs", {})
+            metrics = task.eval_metrics(outputs) if hasattr(task, "eval_metrics") else {}
+            for k, v in {**_as_float_logs(logs), **metrics}.items():
+                sums[k] = sums.get(k, 0.0) + v
+            if hasattr(task, "on_eval_batch_end"):
+                task.on_eval_batch_end(outputs)
+            count += 1
+            if i < self.num_audio_logs:
+                self._log_audio(task, outputs, stage, dl_name, i)
+                if getattr(task, "last_decoded", None):
+                    pred, target = task.last_decoded
+                    self.logger.log_text(f"{stage}_{dl_name or 'main'}_{i}/decode",
+                                         f"pred: {pred}\ntarget: {target}", self._num_val_runs)
+        sums, count = self.parallel.reduce_sums(sums, count)
+        if count:
+            for k, v in sums.items():
+                all_metrics[f"{stage}/{k}{suffix}"] = v / count
+        if count and hasattr(task, "on_eval_epoch_end"):
+            for k, v in task.on_eval_epoch_end().items():
+                all_metrics[f"{stage}/{k}{suffix}"] = float(v)
 
     def _log_audio(self, task, outputs, stage: str, dl_name: str, batch_idx: int) -> None:
         prefix = f"{stage}_{dl_name}_" if dl_name else f"{stage}_"
@@ -422,7 +437,7 @@ class Trainer:
         datamodule.setup("test")
         self._setup(task)
         if self.state is None:
-            self.state = task.init_state(self.seed)
+            self.state = self.parallel.init_state(self.seed)
         if ckpt_path and self.checkpoint is not None and self.checkpoint.has_last():
             self._restore(task, ckpt_path)
         metrics = self._evaluate(task, datamodule.test_dataloader(), "test")

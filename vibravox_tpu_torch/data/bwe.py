@@ -30,6 +30,7 @@ which needs the ``datasets`` package).
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -39,6 +40,7 @@ import torch
 from vibravox_tpu_torch.data.collate import BWECollate
 from vibravox_tpu_torch.data.sources import NpzDirectorySource, SyntheticVibravoxSource, load_hf_vibravox
 from vibravox_tpu_torch.device import DeviceLike, resolve_device
+from vibravox_tpu_torch.parallel.mesh import data_shard
 
 __all__ = ["BWEDataModule"]
 
@@ -69,31 +71,43 @@ def _has_len(source) -> bool:
 class _EpochBatches(torch.utils.data.Sampler):
     """Batches of ``(index, epoch, batch)`` keys: the order is a pure
     function of ``(seed, epoch)``, and a pass takes the epoch that
-    ``set_epoch`` last set (0 before the first call)."""
+    ``set_epoch`` last set (0 before the first call).
+
+    Over a mesh, data rank r of W takes ``idx[r::W]`` of the epoch's
+    permutation (``parallel.mesh.data_shard``, read when the sampler is
+    made), as the JAX loader cuts it: the ranks' shards are disjoint and
+    cover the split, and ``batch_size`` is per rank.  Its batch b is keyed
+    ``b * W + r``, so no two ranks draw alike."""
 
     def __init__(self, n: int, batch_size: int, seed: int):
         self.n, self.batch_size, self.seed = n, batch_size, seed
+        self.rank, self.world = data_shard()
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
 
     def __len__(self) -> int:
-        return self.n // self.batch_size
+        return len(range(self.rank, self.n, self.world)) // self.batch_size
 
     def __iter__(self) -> Iterator[List[Tuple[int, int, int]]]:
         idx = np.arange(self.n)
         np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
+        idx = idx[self.rank::self.world]
         for b in range(len(self)):
             chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            yield [(int(i), self.epoch, b) for i in chunk]
+            yield [(int(i), self.epoch, b * self.world + self.rank) for i in chunk]
 
 
 def eval_keys(n: int, batch_size: int = 1) -> List[List[Tuple[int, int, int]]]:
     """The eval loaders' batches, in order: batch b of epoch 0 holds items
-    b * batch_size onwards (at batch 1, item i alone as batch i)."""
-    return [[(i, 0, b) for i in range(b * batch_size, min((b + 1) * batch_size, n))]
-            for b in range(-(-n // batch_size))]
+    b * batch_size onwards (at batch 1, item i alone as batch i).  Over a
+    mesh, data rank r of W takes the items ``r::W`` (its batch b keyed
+    ``b * W + r``): each item is evaluated once, on one rank."""
+    rank, world = data_shard()
+    items = list(range(rank, n, world))
+    return [[(i, 0, b * world + rank) for i in items[b * batch_size:(b + 1) * batch_size]]
+            for b in range(-(-len(items) // batch_size))]
 
 
 class Keyed(torch.utils.data.Dataset):
@@ -133,6 +147,7 @@ class _StreamBatches(torch.utils.data.IterableDataset):
     def __init__(self, source, collate, batch_size: int, shuffle: bool, drop_last: bool, seed: int):
         self.source, self.collate, self.batch_size = source, collate, batch_size
         self.shuffle, self.drop_last, self.seed = shuffle, drop_last, seed
+        self.rank, self.world = data_shard()  # rows r::W of the stream, as the JAX loader strides it
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -142,7 +157,7 @@ class _StreamBatches(torch.utils.data.IterableDataset):
         rng = np.random.default_rng((self.seed, self.epoch))
         buffer: list = []
         pending: list = []
-        for row in self.source.rows():
+        for row in itertools.islice(self.source.rows(), self.rank, None, self.world):
             buffer.append(row)
             if len(buffer) >= (SHUFFLE_BUFFER if self.shuffle else self.batch_size):
                 pending.append(buffer.pop(int(rng.integers(len(buffer))) if self.shuffle else 0))
@@ -162,7 +177,8 @@ class _StreamBatches(torch.utils.data.IterableDataset):
         worker, workers = (info.id, info.num_workers) if info is not None else (0, 1)
         for b, rows in enumerate(self._row_batches()):
             if b % workers == worker:
-                yield self.collate.keyed([self.source.decode(row) for row in rows], (self.epoch, b), None)
+                yield self.collate.keyed([self.source.decode(row) for row in rows],
+                                         (self.epoch, b * self.world + self.rank), None)
 
 
 def make_loader(source, collate, batch_size: int, train: bool, num_workers: int, seed: int,

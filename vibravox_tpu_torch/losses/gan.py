@@ -13,6 +13,8 @@ from typing import List
 
 import torch
 
+from vibravox_tpu_torch.parallel.mesh import data_mean
+
 __all__ = ["hinge_loss", "feature_matching_loss", "HingeLoss", "FeatureMatchingLoss"]
 
 
@@ -32,12 +34,18 @@ def feature_matching_loss(
     """L1 between hidden layers, normalised by mean |layer_a|, averaged over
     scales x layers.  ``embeddings_a`` is the enhanced branch and gives the
     normaliser, as in the reference."""
-    loss = 0.0
+    means = []
     for scale_a, scale_b in zip(embeddings_a, embeddings_b):
         for layer_a, layer_b in zip(scale_a[1:-1], scale_b[1:-1]):
             layer_a = layer_a.float()
             layer_b = layer_b.float()
-            loss = loss + torch.mean(torch.abs(layer_a - layer_b)) / torch.mean(torch.abs(layer_a))
+            means += [torch.mean(torch.abs(layer_a - layer_b)), torch.mean(torch.abs(layer_a))]
+    # each ratio is over the global batch: both means are taken over the
+    # data ranks before the division
+    means = data_mean(torch.stack(means))
+    loss = 0.0
+    for i in range(0, len(means), 2):
+        loss = loss + means[i] / means[i + 1]
     # the reference divides by len(scale_a[1:-1]) after its loop, where
     # scale_a is the LAST scale (feature_loss.py:48); the EBEN scales differ
     # in depth, so the quirk changes the value and is kept

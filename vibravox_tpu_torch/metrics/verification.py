@@ -109,6 +109,8 @@ class BinaryScoreAccumulator:
         self.labels.append(np.atleast_1d(np.asarray(labels)))
 
     def compute(self) -> Tuple[np.ndarray, np.ndarray]:
+        if not self.scores:  # a rank with no trial of its own
+            return np.zeros(0, np.float32), np.zeros(0, np.int32)
         return np.concatenate(self.scores), np.concatenate(self.labels)
 
     def reset(self) -> None:

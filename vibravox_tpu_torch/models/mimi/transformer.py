@@ -13,6 +13,9 @@ with rotary embeddings and layer scales, on ``(B, T, D)``.
 * With ``dtype`` (bf16), the q / k / v / out and feed-forward projections
   take bf16 inputs and weights; the residual stream, both LayerNorms and
   the layer scales stay float32.  GELU is exact.
+* Under tensor parallelism (``parallel/tp.py``) a layer holds
+  ``num_heads / M`` heads and ``dim_feedforward / M`` units, with
+  Megatron's all-reduce after ``out_proj`` and after ``linear2``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vibravox_tpu_torch.models.mimi.seanet import cast
+from vibravox_tpu_torch.parallel.tp import ModelShard
 
 __all__ = ["rope", "attention_mask", "TransformerLayer", "MimiTransformer"]
 
@@ -70,25 +74,37 @@ class TransformerLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, dim_feedforward, bias=False)
         self.linear2 = nn.Linear(dim_feedforward, d_model, bias=False)
         self.layer_scale_2 = nn.Parameter(torch.full((d_model,), 0.01))
+        # set by parallel.tp.shard_transformer_: this rank's heads / units
+        self.tp_attention: Optional[ModelShard] = None
+        self.tp_ffn: Optional[ModelShard] = None
 
     @staticmethod
-    def _dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-        return F.linear(cast(x, dtype), cast(layer.weight, dtype))
+    def _dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype],
+               tp: Optional[ModelShard] = None) -> torch.Tensor:
+        """With ``tp``, a row-parallel product: partial sums all-reduced."""
+        out = F.linear(cast(x, dtype), cast(layer.weight, dtype))
+        return out if tp is None else tp.exit(out)
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         x = x.float()
         b, t, d = x.shape
+        head_dim = d // self.num_heads
         h = self.norm1(x)
-        q, k, v = (self._dense(p, h, dtype).view(b, t, self.num_heads, d // self.num_heads)
+        tp = self.tp_attention
+        if tp is not None:
+            h = tp.enter(h)
+        q, k, v = (self._dense(p, h, dtype).view(b, t, -1, head_dim)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
         q, k = rope(q, k)
         mask = attention_mask(t, self.sliding_window, x.device)
         attn = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                               attn_mask=mask)
-        attn = self._dense(self.out_proj, attn.transpose(1, 2).reshape(b, t, d), dtype)
+        attn = self._dense(self.out_proj, attn.transpose(1, 2).reshape(b, t, -1), dtype, tp)
         x = x + self.layer_scale_1 * attn.float()
-        ff = self._dense(self.linear1, self.norm2(x), dtype)
-        ff = self._dense(self.linear2, F.gelu(ff), dtype)
+        tp = self.tp_ffn
+        h = self.norm2(x)
+        ff = self._dense(self.linear1, tp.enter(h) if tp is not None else h, dtype)
+        ff = self._dense(self.linear2, F.gelu(ff), dtype, tp)
         return x + self.layer_scale_2 * ff.float()
 
 

@@ -18,6 +18,12 @@ Counterpart of ``vibravox_tpu/models/wav2vec2.py``, the reference's
   the batch;
 * the CTC head, float32 logits.
 
+Under tensor parallelism (``parallel/tp.py``) an attention block holds
+``num_heads / M`` heads and a feed-forward block ``intermediate_size / M``
+units, with Megatron's two all-reduces a block; the random draws are made
+over the global batch and the full widths, each rank keeping its part, so
+the W-rank step draws what the one-rank step draws.
+
 Module and parameter names are HF's ``Wav2Vec2ForCTC`` state-dict names,
 so a real checkpoint loads with ``strict=True``.  Every random draw of a
 train forward (dropout masks, span starts, layerdrop gates) comes from the
@@ -47,6 +53,8 @@ from torch.nn.utils.parametrizations import weight_norm
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device
 from vibravox_tpu_torch.models.layers import variance_scaling_
+from vibravox_tpu_torch.parallel.mesh import global_rand, global_rows
+from vibravox_tpu_torch.parallel.tp import ModelShard
 
 __all__ = [
     "Wav2Vec2Config",
@@ -127,12 +135,15 @@ TINY_W2V2_CONFIG: Dict[str, Any] = dict(
 # --------------------------------------------------------------------------- #
 
 
-def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+             split: Optional[ModelShard] = None) -> torch.Tensor:
     """flax ``Dropout``: keep with probability 1 - p, scale by 1 / (1 - p);
-    nothing without a generator (eval)."""
+    nothing without a generator (eval).  The mask is drawn over the global
+    batch (``parallel.mesh.global_rand``) and, for a last dimension TP
+    split (``split``), over its full width."""
     if generator is None or p <= 0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = global_rand(x.shape, generator, x.device, split) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -140,11 +151,14 @@ def span_starts(generator: torch.Generator, batch: int, length: int, prob: float
                 min_masks: int, device) -> Optional[torch.Tensor]:
     """SpecAugment's span starts, (batch, num_spans) in [0, length - span):
     ``max(min_masks, int(prob * length / span))`` spans a row, as the JAX
-    ``_compute_span_mask`` draws them; None when no span fits."""
+    ``_compute_span_mask`` draws them; None when no span fits.  Drawn over
+    the global batch, this rank's rows kept (``parallel.mesh.global_rows``)."""
     num_spans = max(min_masks, int(prob * length / span))
     if num_spans == 0 or span >= length:
         return None
-    return torch.randint(0, length - span, (batch, num_spans), generator=generator, device=device)
+    rows, start = global_rows(batch)
+    starts = torch.randint(0, length - span, (rows, num_spans), generator=generator, device=device)
+    return starts[start:start + batch]
 
 
 def span_mask(starts: torch.Tensor, length: int, span: int) -> torch.Tensor:
@@ -154,10 +168,18 @@ def span_mask(starts: torch.Tensor, length: int, span: int) -> torch.Tensor:
     return hit.any(dim=1)
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    if dtype is None:
-        return layer(x)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype: Optional[torch.dtype],
+            tp: Optional[ModelShard] = None) -> torch.Tensor:
+    """``layer(x)`` with inputs and weights in ``dtype``; with ``tp``, a
+    row-parallel product: the partial sums all-reduced over ``model``,
+    then the bias."""
+    if tp is None:
+        if dtype is None:
+            return layer(x)
+        return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    w = layer.weight if dtype is None else layer.weight.to(dtype)
+    out = tp.exit(F.linear(x if dtype is None else x.to(dtype), w))
+    return out + (layer.bias if dtype is None else layer.bias.to(dtype))
 
 
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
@@ -250,19 +272,24 @@ class Attention(nn.Module):
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         h = config.hidden_size
-        self.num_heads = config.num_attention_heads
+        self.num_heads, self.head_dim = config.num_attention_heads, h // config.num_attention_heads
         self.q_proj, self.k_proj = nn.Linear(h, h), nn.Linear(h, h)
         self.v_proj, self.out_proj = nn.Linear(h, h), nn.Linear(h, h)
+        self.tp_attention: Optional[ModelShard] = None  # set by parallel.tp.shard_transformer_
 
     def forward(self, h: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
-        b, t, d = h.shape
+        """Under TP the projections hold this rank's ``num_heads / M`` heads."""
+        b, t, _ = h.shape
+        tp = self.tp_attention
+        if tp is not None:
+            h = tp.enter(h)
 
         def heads(x):
-            return x.view(b, t, self.num_heads, d // self.num_heads).transpose(1, 2)
+            return x.view(b, t, -1, self.head_dim).transpose(1, 2)
 
         q, k, v = (heads(_linear(h, p, dtype)) for p in (self.q_proj, self.k_proj, self.v_proj))
         attn = F.scaled_dot_product_attention(q, k, v)
-        return _linear(attn.transpose(1, 2).reshape(b, t, d), self.out_proj, dtype)
+        return _linear(attn.transpose(1, 2).reshape(b, t, -1), self.out_proj, dtype, tp)
 
 
 class FeedForward(nn.Module):
@@ -270,6 +297,7 @@ class FeedForward(nn.Module):
         super().__init__()
         self.intermediate_dense = nn.Linear(config.hidden_size, config.intermediate_size)
         self.output_dense = nn.Linear(config.intermediate_size, config.hidden_size)
+        self.tp_ffn: Optional[ModelShard] = None  # set by parallel.tp.shard_transformer_
 
 
 class EncoderLayer(nn.Module):
@@ -287,9 +315,11 @@ class EncoderLayer(nn.Module):
         """``cfg``: the model's config, for the dropout rates."""
         attn = _dropout(self.attention(h, dtype), cfg.hidden_dropout, generator)
         h = _layer_norm(h + attn, self.layer_norm)
-        ff = F.gelu(_linear(h, self.feed_forward.intermediate_dense, dtype))
-        ff = _dropout(ff, cfg.activation_dropout, generator)
-        ff = _dropout(_linear(ff, self.feed_forward.output_dense, dtype), cfg.hidden_dropout, generator)
+        ffn = self.feed_forward
+        tp = ffn.tp_ffn
+        ff = F.gelu(_linear(tp.enter(h) if tp is not None else h, ffn.intermediate_dense, dtype))
+        ff = _dropout(ff, cfg.activation_dropout, generator, tp)
+        ff = _dropout(_linear(ff, ffn.output_dense, dtype, tp), cfg.hidden_dropout, generator)
         return _layer_norm(h + ff, self.final_layer_norm)
 
 

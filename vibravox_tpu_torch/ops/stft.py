@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.ops.pallas_stft import framed_dft_magnitude
+from vibravox_tpu_torch.parallel.mesh import data_mean, data_sum
 
 __all__ = [
     "a_weighting_fir",
@@ -123,12 +124,18 @@ class MultiResolutionSTFTLoss:
         if self.perceptual_weighting:
             x = apply_fir(x, self.prefilter_taps)
             y = apply_fir(y, self.prefilter_taps)
-        loss = 0.0
+        # spectral convergence is one ratio over the global batch: its
+        # squared norms are summed over the data ranks before the division
+        squares, log_l1 = [], []
         for fft, hop, win in self.resolutions:
             x_mag = framed_dft_magnitude(x, fft, hop, win)
             y_mag = framed_dft_magnitude(y, fft, hop, win)
-            loss = loss + (
-                self.w_sc * spectral_convergence(x_mag, y_mag)
-                + self.w_log_mag * log_magnitude_l1(x_mag, y_mag)
-            )
+            squares += [torch.sum((y_mag - x_mag) ** 2), torch.sum(y_mag**2)]
+            log_l1.append(log_magnitude_l1(x_mag, y_mag))
+        sums = data_sum(torch.stack(squares))
+        logs = data_mean(torch.stack(log_l1))
+        loss = 0.0
+        for i in range(len(self.resolutions)):
+            sc = torch.sqrt(sums[2 * i]) / torch.sqrt(sums[2 * i + 1])
+            loss = loss + (self.w_sc * sc + self.w_log_mag * logs[i])
         return loss / len(self.resolutions)

@@ -23,6 +23,15 @@ port does not import ``transformers``).  A task with a ``tokenizer`` left
 top-level key is the port's own: ``device`` (``++device=cpu``), given to
 every constructor of the port that takes one; absent, the run uses the GPU
 and raises without one.
+
+Over N GPUs (``parallel/``), launch it with ``torchrun``::
+
+    python -m torch.distributed.run --nproc_per_node N -m vibravox_tpu_torch.run ... \
+        [trainer.mesh.data=-1] [trainer.mesh.model=M] [trainer.mesh.fsdp=true]
+
+``initialize_distributed`` joins the process group (NCCL on the GPU, gloo
+on the CPU) from torchrun's variables before anything else is made;
+``trainer.mesh`` lays the ranks out, and ``batch_size`` is per rank.
 """
 
 from __future__ import annotations
@@ -84,6 +93,7 @@ def main(argv=None) -> dict:
 
     from vibravox_tpu_torch.core.config import compose, instantiate
     from vibravox_tpu_torch.device import resolve_device
+    from vibravox_tpu_torch.parallel import distributed
 
     overrides = list(argv if argv is not None else sys.argv[1:])
     cfg = compose(CONFIG_DIR, "run", overrides)
@@ -93,6 +103,8 @@ def main(argv=None) -> dict:
     if cfg.get("lightning_module") in (None, {}):
         raise SystemExit("lightning_module must be overridden (e.g. lightning_module=eben)")
     device = str(resolve_device(cfg.pop("device", None)))
+    # a torchrun launch joins its process group before any model is made
+    joined = not distributed.is_initialized() and distributed.initialize_distributed(device)
     port_targets(cfg, device)
 
     # hydra.job.chdir: each run owns its directory, where checkpoints and
@@ -129,6 +141,8 @@ def main(argv=None) -> dict:
         return trainer.test(task, datamodule, ckpt_path="last")
     finally:
         os.chdir(old_cwd)
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

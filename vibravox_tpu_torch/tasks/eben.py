@@ -19,6 +19,18 @@ reference's Lightning module with manual optimisation
   ``torch.Generator``: a closed gate leaves the discriminator's parameters
   and its Adam state (step count included) untouched.
 
+``accumulate_grad_batches = k`` follows ``optax.MultiSteps``
+(``core/optim.py::MultiSteps``): each optimizer steps on the mean of k
+micro-batch gradients, and a closed gate also leaves the discriminator's
+running mean and its count untouched, as the JAX step's ``jnp.where`` over
+the whole optimizer state does.
+
+Over a mesh (``parallel/mesh.py``) each rank runs its rows of the global
+batch: the gradients are averaged over ``data`` before each optimizer
+steps, each balancing gradient before its norm (every rank holds the same
+lambdas), the STFT loss's spectral convergence and the feature matching
+ratios are global, and the gate's generator, seeded alike, draws alike.
+
 Networks run in ``compute_dtype`` (``"bfloat16"`` casts activations and
 weights at the call; the parameters stay float32); the losses reduce in
 float32 and the whole step keeps cuDNN's float32 convolutions in IEEE
@@ -42,10 +54,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from vibravox_tpu_torch.core.optim import materialise, step_counts_to_cpu
+from vibravox_tpu_torch.core.optim import accumulate, materialise, step_counts_to_cpu
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
+from vibravox_tpu_torch.parallel.mesh import data_mean, sync_gradients
 from vibravox_tpu_torch.tasks.se_metrics import SEMetrics
 
 __all__ = ["EBENTask", "EBENTrainState"]
@@ -106,8 +119,7 @@ class EBENTask:
     ``device``: ``None`` for the GPU (raises without one), or ``"cpu"``; the
     networks are moved there.  ``track_grad_norm=2`` logs each network's
     global gradient norm (``train/*/grad_2.0_norm_total``).  Not ported yet,
-    and refused: ``push_to_hub_after_testing`` (it needs the network) and
-    ``accumulate_grad_batches`` other than 1."""
+    and refused: ``push_to_hub_after_testing`` (it needs the network)."""
 
     sample_rate: int
     generator: EBENGenerator
@@ -138,9 +150,6 @@ class EBENTask:
             raise ValueError(f"track_grad_norm must be -1 or 2, got {self.track_grad_norm!r}")
         if self.push_to_hub_after_testing:
             raise NotImplementedError("pushing to the hub needs the network and is not ported")
-        if self.accumulate_grad_batches != 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet: accumulate_grad_batches must be 1")
         self.generator_optimizer = materialise(self.generator_optimizer)
         self.discriminator_optimizer = materialise(self.discriminator_optimizer)
         self.device = resolve_device(self.device)
@@ -185,8 +194,10 @@ class EBENTask:
             generator=self.generator,
             discriminator=self.discriminator,
             step=step,
-            generator_optimizer=self.generator_optimizer(self.generator.parameters()),
-            discriminator_optimizer=self.discriminator_optimizer(self.discriminator.parameters()),
+            generator_optimizer=accumulate(self.generator_optimizer(self.generator.parameters()),
+                                           self.accumulate_grad_batches),
+            discriminator_optimizer=accumulate(self.discriminator_optimizer(self.discriminator.parameters()),
+                                               self.accumulate_grad_batches),
             atomic_norms_ema=ema.to(self.device),
             gate=torch.Generator().manual_seed(int(seed)),
         )
@@ -237,10 +248,10 @@ class EBENTask:
         if self.dynamic_loss_balancing is None:
             return torch.ones(len(values), device=self.device), state.atomic_norms_ema
         weight = self.generator.last_conv.weight
-        norms = torch.stack([
-            torch.linalg.vector_norm(torch.autograd.grad(v, weight, retain_graph=True)[0].float())
-            for v in values
-        ])
+        # the global gradient of each loss: averaged over the data ranks
+        grads = data_mean(torch.stack([torch.autograd.grad(v, weight, retain_graph=True)[0].float()
+                                       for v in values]))
+        norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
         if self.dynamic_loss_balancing == "ema" and state.step > 0:
             norms = self.beta_ema * state.atomic_norms_ema + (1 - self.beta_ema) * norms
         return torch.clamp(1.0 / (norms + 1e-4), 0.0, 1e4).detach(), norms.detach()
@@ -278,15 +289,15 @@ class EBENTask:
             total = sum(lambdas[i] * v for i, v in enumerate(values))
             state.generator_optimizer.zero_grad(set_to_none=True)
             total.backward()
+            sync_gradients(list(gen.parameters()))
+            if self.track_grad_norm == 2:
+                logs["train/generator/grad_2.0_norm_total"] = _grad_norm(p.grad for p in gen.parameters())
             state.generator_optimizer.step()
         finally:
             self.discriminator.requires_grad_(True)
         for k, v in atomic.items():
             logs[f"train/generator/{k}"] = v.detach()
         logs["train/generator/backprop_loss"] = total.detach()
-        if self.track_grad_norm == 2:
-            logs["train/generator/grad_2.0_norm_total"] = _grad_norm(
-                p.grad for p in gen.parameters())
 
         # ---- discriminator: Bernoulli-gated hinge step ----
         if self.adversarial_loss_fn is not None:
@@ -298,14 +309,19 @@ class EBENTask:
                 real = self.adversarial_loss_fn(reference_emb, 1).float()
                 fake = self.adversarial_loss_fn(enhanced_emb, -1).float()
                 disc_total = real + fake
+            disc_params = list(self.discriminator.parameters())
             if gate_open:
                 state.discriminator_optimizer.zero_grad(set_to_none=True)
                 disc_total.backward()
+                sync_gradients(disc_params)
+                grads = [p.grad.clone() if track and p.grad is not None else p.grad for p in disc_params]
                 state.discriminator_optimizer.step()
-                grads = [p.grad for p in self.discriminator.parameters()]
             elif track:  # the JAX step logs the norm of the gradient it gated away
-                grads = torch.autograd.grad(disc_total, list(self.discriminator.parameters()),
-                                            allow_unused=True)
+                grads = torch.autograd.grad(disc_total, disc_params, allow_unused=True)
+                grads = [g for g in grads if g is not None]
+                if grads:
+                    grads = list(data_mean(torch.cat([g.reshape(-1) for g in grads])).split(
+                        [g.numel() for g in grads]))
             logs["train/discriminator/real_loss"] = real.detach()
             logs["train/discriminator/fake_loss"] = fake.detach()
             logs["train/discriminator/backprop_loss"] = disc_total.detach()

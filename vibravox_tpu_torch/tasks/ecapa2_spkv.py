@@ -5,7 +5,9 @@ reference's ``ECAPA2LightningModule``, ``lightning_modules/ecapa2.py:22-224``):
 the train step does nothing; the test loop embeds both sides of each trial
 pair, L2-normalises them, and accumulates the cosine similarity, the
 euclidean distance and the same-speaker labels on the host; the epoch's end
-gives the EER and its threshold, minDCF and the distance statistics.
+gives the EER and its threshold, minDCF and the distance statistics.  Over
+a mesh each data rank embeds its own trials and the epoch's end scores the
+trials of every rank, gathered.
 
 The embedder is any module ``(B, T) waveform -> (B, D)``: ``ECAPA2`` by
 default, ``ECAPATDNN`` through the config.  ``checkpoint_path`` (or
@@ -33,6 +35,7 @@ from vibravox_tpu_torch.metrics.verification import (
     equal_error_rate,
     minimum_detection_cost,
 )
+from vibravox_tpu_torch.parallel.mesh import gather_objects
 
 __all__ = ["SPKVTask", "SPKVState"]
 
@@ -133,6 +136,10 @@ class SPKVTask:
         ``on_test_epoch_end``, ``ecapa2.py:190-201``); resets the epoch."""
         cosine, labels = self._cosine_acc.compute()
         euclid, _ = self._euclid_acc.compute()
+        # over a mesh, every data rank's trials (parallel.mesh.gather_objects)
+        parts = gather_objects((cosine, euclid, labels))
+        if len(parts) > 1:
+            cosine, euclid, labels = (np.concatenate([p[i] for p in parts]) for i in range(3))
         eer = equal_error_rate(cosine, labels)
         dcf = minimum_detection_cost(cosine, labels, self.mindcf_p_target, self.mindcf_c_fa, self.mindcf_c_fr)
         metrics = {

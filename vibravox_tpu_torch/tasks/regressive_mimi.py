@@ -14,6 +14,13 @@ body-conducted latents through the RVQ for the SE metrics (resampled to
 No hand-written kernel lies on this path: the JAX codec is XLA convs,
 matmuls and ``dot_product_attention``.  The steps run under
 ``strict_float32`` (IEEE float32 convs and products on the GPU).
+
+Over a mesh (``parallel/mesh.py``) the gradients are averaged over
+``data`` before the step, and ``partition_spec_for_path`` (JAX's hook,
+``parallel/tp.py``) splits both bottleneck transformers over ``model``
+(the frozen copy too); the SEANet trunks and the quantizer stay
+replicated.  Under FSDP2 the frozen copy is whole, taken before the
+sharding (``configure_for_mesh``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from torch import nn
 from vibravox_tpu_torch.core.optim import materialise, step_counts_to_cpu
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.mimi.mimi import ENCODER_SIDE, MimiModule
+from vibravox_tpu_torch.parallel.mesh import sync_gradients
+from vibravox_tpu_torch.parallel.tp import transformer_tp_spec
 from vibravox_tpu_torch.tasks.se_metrics import SEMetrics
 
 __all__ = ["RegressiveMimiTask", "MimiTrainState"]
@@ -86,6 +95,7 @@ class RegressiveMimiTask:
             child.requires_grad_(name in ENCODER_SIDE)
         self.optimizer = materialise(self.optimizer)
         self._se_metrics = SEMetrics(self.sample_rate, device=self.device)
+        self._whole_encoder_side: Optional[nn.ModuleDict] = None  # under FSDP (configure_for_mesh)
 
     def init_state(self, seed: int = 0) -> MimiTrainState:
         """Step 0, a fresh Adam over the encoder side, and the frozen copy of
@@ -93,10 +103,23 @@ class RegressiveMimiTask:
         nothing at random."""
         del seed
         model = self.mimi
-        frozen = nn.ModuleDict({name: copy.deepcopy(getattr(model, name)) for name in ENCODER_SIDE})
+        source = model if self._whole_encoder_side is None else self._whole_encoder_side
+        frozen = nn.ModuleDict({name: copy.deepcopy(getattr(source, name)) for name in ENCODER_SIDE})
         frozen.requires_grad_(False)
         params = [p for name in ENCODER_SIDE for p in getattr(model, name).parameters()]
         return MimiTrainState(model=model, optimizer=self.optimizer(params), step=0, frozen=frozen)
+
+    partition_spec_for_path = staticmethod(transformer_tp_spec)
+
+    # the codec's entry points, which gather its parameters under FSDP2
+    fsdp_forward_methods = {"mimi": ("encode_to_latent", "decode_latent")}
+
+    def configure_for_mesh(self, mesh) -> None:
+        """Under FSDP the encoder side is copied whole now, before FSDP2
+        shards it: ``init_state`` takes the frozen copy from there."""
+        if mesh.fsdp:
+            self._whole_encoder_side = nn.ModuleDict(
+                {name: copy.deepcopy(getattr(self.mimi, name)) for name in ENCODER_SIDE}).requires_grad_(False)
 
     def eval_metrics(self, outputs: Dict[str, Any]) -> Dict[str, float]:
         return self._se_metrics(outputs)
@@ -123,6 +146,7 @@ class RegressiveMimiTask:
             loss = (state.model.encode_to_latent(corrupted) - target).abs().mean()
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            sync_gradients([p for g in state.optimizer.param_groups for p in g["params"]])
             state.optimizer.step()
         state.step += 1
         return state, {"train/l1_latent_loss": loss.detach()}

@@ -17,6 +17,14 @@ The step runs cuDNN's float32 convolutions in IEEE float32
 No hand-written kernel lies on this path: the JAX model is XLA
 convolutions, dense layers and ``dot_product_attention``, and its CTC an
 XLA scan.
+
+``accumulate_grad_batches = k`` steps Adam on the mean of k micro-batch
+gradients (``optax.MultiSteps``, ``core/optim.py::MultiSteps``).  Over a
+mesh (``parallel/mesh.py``) the gradients are averaged over ``data``
+before the step, the random draws are made over the global batch, and
+``partition_spec_for_path`` (JAX's hook, ``parallel/tp.py``) splits the
+encoder's attention and feed-forward blocks over ``model``; the conv
+trunk stays replicated.
 """
 
 from __future__ import annotations
@@ -28,10 +36,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from vibravox_tpu_torch.core.optim import materialise, step_counts_to_cpu
+from vibravox_tpu_torch.core.optim import accumulate, materialise, step_counts_to_cpu
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
 from vibravox_tpu_torch.ops.ctc import ctc_loss
+from vibravox_tpu_torch.parallel.mesh import sync_gradients
+from vibravox_tpu_torch.parallel.tp import transformer_tp_spec
 
 __all__ = ["Wav2Vec2STPTask", "STPTrainState", "step_generator"]
 
@@ -74,9 +84,8 @@ class Wav2Vec2STPTask:
     config's ``_partial_``); ``optimizer``: a factory over parameters
     (``core/optim.py``); ``tokenizer``: the data module's (``run.main``
     hands it over), used by ``eval_metrics``.  ``device``: ``None`` for the
-    GPU (raises without one), or ``"cpu"``.  Refused: ``accumulate_grad_batches``
-    other than 1 (ROADMAP Queue 1 item 13) and ``flatten_optimizer`` (an
-    optax knob)."""
+    GPU (raises without one), or ``"cpu"``.  Refused: ``flatten_optimizer``
+    (an optax knob)."""
 
     wav2vec2_for_ctc: Any
     optimizer: Callable[..., torch.optim.Optimizer]
@@ -90,10 +99,6 @@ class Wav2Vec2STPTask:
     device: DeviceLike = None
 
     def __post_init__(self):
-        if self.accumulate_grad_batches != 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet (ROADMAP Queue 1 item 13): "
-                "accumulate_grad_batches must be 1")
         if self.flatten_optimizer:
             raise NotImplementedError("flatten_optimizer is an optax option with no PyTorch counterpart")
         self.device = resolve_device(self.device)
@@ -110,8 +115,11 @@ class Wav2Vec2STPTask:
     def init_state(self, seed: int = 0) -> STPTrainState:
         """A fresh optimizer over the model's parameters, step 0."""
         model = self.wav2vec2_for_ctc
-        return STPTrainState(model=model, optimizer=self.optimizer(model.parameters()), step=0,
-                             seed=int(seed))
+        return STPTrainState(model=model, optimizer=accumulate(self.optimizer(model.parameters()),
+                                                               self.accumulate_grad_batches),
+                             step=0, seed=int(seed))
+
+    partition_spec_for_path = staticmethod(transformer_tp_spec)
 
     # ------------------------------------------------------------------ #
 
@@ -141,6 +149,7 @@ class Wav2Vec2STPTask:
             loss = self._ctc_loss(logits, batch["phonemes_ids"].to(self.device))
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            sync_gradients(list(state.model.parameters()))
             state.optimizer.step()
         state.step += 1
         return state, {"train/ctc_loss": loss.detach()}
