@@ -30,8 +30,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_trace_check: no CUDA device is available")
     cs.phase_profile()
-    kinds = {kernel for _, kernel in cs.K2_PASSES}
-    counts = []
+    counts, want = [], []
     for _ in range(4):
         for i, (_, c, t) in enumerate(cs.TRAIN_SHAPES):
             for dtype in (torch.float32, torch.bfloat16):
@@ -43,9 +42,10 @@ def main() -> None:
                     cs.residual_stack_backward(x, ks, g)
                     torch.cuda.synchronize()
                 events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-                counts.append((len(events), sum(any(k in e.name for k in kinds) for e in events)))
+                counts.append((len(events), sum(any(k in e.name for k in cs.K2_KERNELS) for e in events)))
+                want.append(len(cs.k2_passes(dtype)))
     print(json.dumps({"traces": len(counts), "no_cuda_kernel": sum(n == 0 for n, _ in counts),
-                      "k2_incomplete": sum(k != len(cs.K2_PASSES) for _, k in counts),
+                      "k2_incomplete": sum(k != n for (_, k), n in zip(counts, want)),
                       "counts": counts}), flush=True)
 
 

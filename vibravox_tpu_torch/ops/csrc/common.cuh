@@ -45,12 +45,6 @@ __device__ __forceinline__ int reflect(int g, int t_len) {
 // tests/test_torch_residual_mma.py and tests/test_torch_residual_fwd_mma.py
 // emulate these maps and the kernels' walks.
 
-// two f32 that hold bf16 values (exact), as one register of bf16 pairs
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // c += A . B on one m16n8k16 tile
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -72,6 +66,26 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
                : "memory");
 }
 
+// ldmatrix.x4.trans: lane l gives the address of row l % 8 of the 8 x 8
+// bf16 matrix l / 8, as above; register r of lane 4 g + q receives rows 2q
+// and 2q + 1 of column g of matrix r (the matrix transposed).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// ldmatrix.x2.trans: two matrices, from the addresses of lanes 0-15
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
 // 16 bytes from global to shared memory without passing through registers
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -80,6 +94,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of the cp.async groups this thread committed are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // waits for every cp.async group this thread committed

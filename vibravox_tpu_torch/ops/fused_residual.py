@@ -40,6 +40,7 @@ __all__ = [
     "residual_stack_config",
     "plain_residual_stack",
     "residual_stack_backward",
+    "residual_stack_backward_config",
     "plain_residual_stack_backward",
 ]
 
@@ -125,12 +126,12 @@ def _check_cuda_inputs(x: torch.Tensor, flat, dilations) -> None:
 @functools.lru_cache(maxsize=1)
 def _backward_library() -> ctypes.CDLL:
     lib = _build.load("fused_residual_bwd")
-    lib.vx_residual_stack_backward_blocks.restype = ctypes.c_int
-    lib.vx_residual_stack_backward_blocks.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.vx_residual_stack_backward_config.restype = ctypes.c_int
+    lib.vx_residual_stack_backward_config.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.vx_residual_stack_backward.restype = ctypes.c_int
     lib.vx_residual_stack_backward.argtypes = (
-        # x, g, dx, wd0, wp0, wd1, wp1, wd2, wp2, dw, x1, x2, g_a, g_b, partial
-        [ctypes.c_void_p] * 15
+        # x, g, dx, wd0, wp0, wd1, wp1, wd2, wp2, dw, x1, x2, g_a, g_b, partial, wt
+        [ctypes.c_void_p] * 16
         + [ctypes.c_int] * 5  # blocks, batch, channels, t_len, dtype
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # slope, device, stream
     )
@@ -140,14 +141,25 @@ def _backward_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=64)
-def _backward_blocks(b: int, c: int, t: int, dtype: int, device: int) -> int:
-    """Blocks of K2's persistent grid (and so of its dW partials) for a shape."""
+def _backward_config(b: int, c: int, t: int, dtype: int, device: int) -> tuple:
     lib = _backward_library()
-    blocks = ctypes.c_int(0)
-    err = lib.vx_residual_stack_backward_blocks(b, c, t, dtype, device, ctypes.byref(blocks))
+    out = (ctypes.c_int * 15)()
+    err = lib.vx_residual_stack_backward_config(b, c, t, dtype, device, out)
     if err != 0:
         raise RuntimeError(f"fused residual backward set-up failed: {lib.vx_error_string(err).decode()}")
-    return blocks.value
+    return tuple(out)
+
+
+def residual_stack_backward_config(b: int, c: int, t: int, dtype: torch.dtype, device: int = 0) -> dict:
+    """K2's launch configuration for a shape on a CUDA device: the time tile,
+    the persistent grid of its ``unit_backward`` passes (and so the number of
+    dW partials), the tiles, and for the unit at each dilation the blocks per
+    SM that occupancy allows, the dynamic shared memory, and the registers
+    and local (spill) bytes per thread."""
+    out = _backward_config(b, c, t, _DTYPES[dtype], device)
+    keys = ("blocks_per_sm", "smem_bytes", "registers", "local_bytes")
+    units = {f"d{d}": dict(zip(keys, out[3 + 4 * u : 7 + 4 * u])) for u, d in enumerate((9, 3, 1))}
+    return {"tile": out[0], "grid": out[1], "tiles": out[2], "unit_backward": units}
 
 
 def residual_stack_config(b: int, c: int, t: int, dtype: torch.dtype, device: int = 0) -> dict:
@@ -235,18 +247,21 @@ def residual_stack_backward(
         raise ValueError(f"g is {tuple(g.shape)} on {g.device}, x is {tuple(x.shape)} on {x.device}")
     b, c, t = x.shape
     dev = x.device.index or 0
-    blocks = _backward_blocks(b, c, t, _DTYPES[x.dtype], dev)
+    blocks = _backward_config(b, c, t, _DTYPES[x.dtype], dev)[1]  # the grid: one dW partial a block
     g32 = g.detach().to(torch.float32).contiguous()
     dx = torch.empty_like(x)
     dw = torch.empty(3, 4 * c * c, device=x.device, dtype=torch.float32)
     x1, x2 = torch.empty_like(x), torch.empty_like(x)
     g_a, g_b = torch.empty_like(g32), torch.empty_like(g32)
     partial = torch.empty(blocks, 4 * c * c, device=x.device, dtype=torch.float32)
+    # bf16 scratch: each unit's weights laid out in eight [n][k] slots for the
+    # kernels' 16-byte copies; float32 takes none
+    wt = torch.empty(24 * c * c if x.dtype == torch.bfloat16 else 0, device=x.device, dtype=x.dtype)
     lib = _backward_library()
     err = lib.vx_residual_stack_backward(
         x.data_ptr(), g32.data_ptr(), dx.data_ptr(), *[w.data_ptr() for w in flat],
         dw.data_ptr(), x1.data_ptr(), x2.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
-        partial.data_ptr(), blocks, b, c, t, _DTYPES[x.dtype], float(slope), dev,
+        partial.data_ptr(), wt.data_ptr(), blocks, b, c, t, _DTYPES[x.dtype], float(slope), dev,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
