@@ -80,9 +80,26 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     utterances; the data module over it (``light`` augmentation, two
     workers) gives the synthetic source's train, validation and test
     batches byte for byte;
-17. cli: this slice's main path.  ``vibravox_tpu_torch.run.main`` with
-    ``lightning_datamodule=bwe lightning_module=eben callbacks=bwe_checkpoint
-    logging=csv``, the synthetic source (64 utterances) with the published
+17. melgan_multiscales: ``MelganMultiScalesDiscriminator(16000, scales=3)``
+    at full width on b4 x 2.5 s, float32 under ``strict_float32``, card
+    against CPU: every scale's resampled input and embeddings within 1e-4
+    of scale, the audio gradient through the resamplers within 1e-3 of its
+    norm;
+18. int8_disc: the opt-in int8 discriminator (``VIBRAVOX_INT8_DISC=1``).
+    One eben.yaml bf16 b32 train step with the flag against one without,
+    in turns (finite losses and gradient norms, step ms); then at every
+    int8 conv shape that step ran at batch 32 (the published EBEN
+    discriminator's 18 and its MelGAN's 5) the ``torch._int_mm`` route
+    equal in int32 to the exact integer convolution (float64 on the card)
+    and to the CPU's int32 twin on its first rows, and its times beside
+    cuDNN's bf16 conv (``int8_conv`` lines), with the card's name and
+    power limit;
+19. cli: this slice's main path.  ``vibravox_tpu_torch.run.main`` with
+    ``lightning_datamodule=bwe lightning_module=eben callbacks=bwe_checkpoint``
+    and the published default ``logging: tensorboard``, whose event file is
+    read back (``core/logging.py::read_events``, every checksum checked): its
+    scalars equal the trainer's step by step, train and validation among
+    them, and its audio records are 16 kHz WAVs; the synthetic source (64 utterances) with the published
     ``light`` augmentation, two epochs, four validation and four test
     batches, in a temporary run_dir: the K1-K4 launches of fit and of
     test("last") are asserted (test: K1 and K3 only), with the fit's wall,
@@ -91,34 +108,39 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     metrics; ``last``, ``index.json`` and the top-2 checkpoints must exist;
     a second run with ``max_epochs=3`` must resume at epoch 2, its Adam
     step counts on the CPU, its train steps timed against the first run's;
-18. cli_noisybwe: ``run.main`` with ``lightning_datamodule=noisybwe
+20. cli_noisybwe: ``run.main`` with ``lightning_datamodule=noisybwe
     lightning_module=eben callbacks=bwe_checkpoint logging=csv`` on the
     synthetic source (64 utterances) with its published ``aggressive``
     augmentation, fit two epochs then test("last"), four batches of each
     of the ``synthetic`` and ``real`` loaders: K1-K4 launches asserted, the
     real loader's batches reference-free (no airborne key, no losses, no
     metrics), each step's data wait against its time;
-19. stp_parity: the STP slice (wav2vec2-CTC, no hand-written kernel on its
+21. stp_parity: the STP slice (wav2vec2-CTC, no hand-written kernel on its
     path) in float32 under ``strict_float32``: the full-width base model
     (seed 0) in eval on 2 x 48000 samples, card against CPU (1e-4 of
     scale); one train step at hidden 256 / 4 layers with the random parts
     off (loss 1e-4 relative, parameters within 1e-2 of the update); the
     CTC loss at the recipe's shapes (value 1e-5 relative, each row's
     gradient within 1e-5 + 1e-6 x its loss);
-20. stp_train / stp_profile: ``Trainer.fit`` of the published STP task
+22. stp_train / stp_profile: ``Trainer.fit`` of the published STP task
     (the base model through the from_pretrained config, reading a local
     checkpoint written from seed 0) on the synthetic ``STPDataModule`` at
     batch 8, bf16-mixed, 28 synchronised steps: step times, audio-s/s,
     padded lengths, data waits, peak memory, model FLOPs and their share of
     the bf16 peak; then a CUDA-only trace of 5 steps by kernel kind, the
     idle share, and the positional conv alone; no K1-K4 launch;
-21. cli_stp: ``run.main`` with ``lightning_datamodule=stp
+23. cli_stp: ``run.main`` with ``lightning_datamodule=stp
     lightning_module=wav2vec2_for_stp callbacks=stp_checkpoint
     logging=csv`` on the synthetic source, two epochs of two steps, then
     test("last"), then a resumed third epoch: finite ``test/ctc_loss`` and
     ``test/char_error_rate``, the fit's wall, the test seconds per batch
     split into the eval step and the host decode + CER;
-22. spkv_parity: the SPKV slice in float32 (IEEE): the full-width ECAPA2
+24. scripts: ``push_dis_to_hub`` on phase ``cli``'s checkpoint and
+    ``upload_phonemizer_to_hub`` on phase ``cli_stp``'s, each export loaded
+    back on the card bit-equal; ``test_all_phonemizers`` on the phonemizer
+    export (six sensors, two synthetic utterances each, on the card);
+    ``sweep --dry-run`` over the three published tables;
+25. spkv_parity: the SPKV slice in float32 (IEEE): the full-width ECAPA2
     and ECAPA-TDNN at its default width (seed 0, BatchNorms randomised) on
     2 x 48000 samples of synthetic speech, card against CPU (log-mel
     features within 1e-3 on the bins whose power is at least 1e-6 of their
@@ -127,12 +149,12 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     against its plain version at fft 512 / hop 160 / win 400 at (32, 48000)
     and at a ragged batch-1 trial, with kernel, plain, library and bound
     times of whole wrapper calls, in turns;
-23. spkv_embed: bench.py's spkv regime, the full-width ECAPA2 on batches of
+26. spkv_embed: bench.py's spkv regime, the full-width ECAPA2 on batches of
     32 x 3 s, 3 warm-up and 20 synchronised batches, bf16 trunk and
     float32: ms a batch, audio-s/s, peak memory, model FLOPs and their
     share of the peak, K3 once a batch and K1, K2, K4 never; a CUDA-only
     trace of 5 batches by kernel kind and the idle share;
-24. cli_spkv: ``run.main`` with ``lightning_datamodule=spkv
+27. cli_spkv: ``run.main`` with ``lightning_datamodule=spkv
     lightning_module=ecapa2 logging=csv`` on the synthetic source (120
     trials at batch 1, one loader worker) with the full-width embedder
     from a seed-0 state dict (``checkpoint_path``), then again with
@@ -140,7 +162,7 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     finite EER, threshold, minDCF and distance statistics, K3 twice a trial
     and K1, K2, K4 never, the test's seconds per trial split into the two
     embedder forwards and the host's scoring;
-25. mimi_parity: the regressive-Mimi slice (no hand-written kernel on its
+28. mimi_parity: the regressive-Mimi slice (no hand-written kernel on its
     path) in float32 (IEEE): the published ``MimiConfig()`` at full width
     (seed 0) on b2 x 2 s of synthetic speech, card against CPU: latents
     within 1e-4 of scale, the codes' agreement by stage with every flip a
@@ -148,23 +170,23 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     1e-4 relative), the decode of the CPU's codes and ``decode_latent`` on
     the rows whose codes all agree within 1e-3 of scale; the bf16 codec
     within 0.1 of scale of its float32;
-26. mimi_train: bench.py's mimi regime, ``RegressiveMimiTask`` on the
+29. mimi_train: bench.py's mimi regime, ``RegressiveMimiTask`` on the
     full-width bf16 codec, batches of 32 x 2 s, 3 warm-up and 20
     synchronised steps: step ms (median, p10-p90), audio-s/s, peak memory,
     FLOPs over the bf16 peak, the loss falling on the fixed batch, the
     decoder side, quantizer and frozen copy bit-equal after the steps, no
     K1-K4 launch; a CUDA-only trace of 5 steps by kernel kind and the idle
     share;
-27. codec: bench.py's codec regime, ``encode_to_latent`` + ``decode_latent``
+30. codec: bench.py's codec regime, ``encode_to_latent`` + ``decode_latent``
     of 32 x 2 s in bf16, with the same figures;
-28. cli_mimi: ``run.main`` with ``lightning_datamodule=bwe
+31. cli_mimi: ``run.main`` with ``lightning_datamodule=bwe
     lightning_module=regressive_mimi sample_rate=24000
     lightning_datamodule.batch_size=16 logging=csv callbacks=bwe_checkpoint``
     on 32 synthetic utterances with the ``light`` augmentation: fit two
     epochs, test("last") (finite STOI and SI-SDR), a resumed third epoch;
     the fit's wall and the test's seconds per batch split into the eval
     step and the host SE metrics;
-29. squim_parity: the SQUIM networks (no hand-written kernel on their
+32. squim_parity: the SQUIM networks (no hand-written kernel on their
     path) at full width, ``squim_objective_base()`` and
     ``squim_subjective_base()`` (seed 0, norms, PReLU slopes and alpha
     randomised), written as torchaudio-schema state dicts and loaded on the
@@ -172,23 +194,23 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     card against CPU in IEEE float32 (scores and MOS within 1e-4 of
     scale), and the objective's deviation with cuDNN's RNNs left in TF32,
     reported;
-30. squim_eval: ``SEMetrics`` with SQUIM at the CLI's test batch (batch 1,
+33. squim_eval: ``SEMetrics`` with SQUIM at the CLI's test batch (batch 1,
     2.5 s), 3 warm-up and 20 synchronised calls split into the objective,
     the subjective and the rest; the objective alone at 32 x 2.5 s; FLOPs
     from the shapes, device time by kind, idle share and kernels a call;
-31. hub_enhance: the full-width EBEN generator saved by
+34. hub_enhance: the full-width EBEN generator saved by
     ``save_eben_generator`` and loaded on the card by
     ``eben_generator_from_pretrained`` (forward bit-equal), then
     ``scripts/eben_enhanced_vibravox.py`` on 8 synthetic test utterances
     on the card (each npz within 1e-5 of scale of the direct forward, K1
     six launches an utterance, seconds an utterance);
-32. cli_squim: the CLI's test of phases ``cli`` and ``cli_noisybwe``
+35. cli_squim: the CLI's test of phases ``cli`` and ``cli_noisybwe``
     again, on their ``last`` checkpoints, with ``VIBRAVOX_SQUIM_DIR``
     holding the full-width SQUIM weights: ``torchsquim_stoi`` in [0, 1]
     and ``noresqa_mos`` finite (on the noisy CLI's reference-free batches
     too), the K1-K4 launches equal to those phases' tests, the test
     seconds a batch split into SQUIM and the rest;
-33. dp_parity: this slice's main path, the parallel layer.  Two processes
+36. dp_parity: this slice's main path, the parallel layer.  Two processes
     share the card over gloo (NCCL refuses two ranks on one device) and
     run the full-width eben.yaml step through ``DataParallel`` on 16 rows
     each of a global batch of 32 x 2.5 s: in float32 with SGD it equals
@@ -197,24 +219,25 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     a step, K1-K4 6 / 6 / 6 / 6 a step on each rank, counted in the
     ranks); then ``DataParallel`` at world size 1 over NCCL against the
     plain step in one process, the wrapper's own ms;
-34. fsdp_tp: two gloo ranks on the card (gloo's CUDA collectives carry
+37. fsdp_tp: two gloo ranks on the card (gloo's CUDA collectives carry
     FSDP2's and DTensor's, checked on the H100): the full-width
     wav2vec2-base STP step (b8 x 3 s, bf16) through plain DP and with
     FSDP2, and the full-width Mimi step (b32 x 2 s, bf16) on a model axis
     of two, each against the one-process step at mimi_parity's bf16 bars
     (loss 1e-2, update 5e-2 of scale), each rank's peak memory and
     parameter bytes beside plain DP's;
-35. cli_dp: ``python -m torch.distributed.run --standalone
-    --nproc_per_node 1 -m vibravox_tpu_torch.run`` with the EBEN CLI over
-    NCCL and the default ``trainer.mesh``: fit, test("last"), a resumed
-    epoch and its test;
-36. the ``kernels`` line (all four kernels), then the result line.
+38. cli_dp: ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m vibravox_tpu_torch.run`` with the EBEN CLI and
+    ``logging=csv`` (it reads the CSV's test metrics) over NCCL and the
+    default ``trainer.mesh``: fit, test("last"), a resumed epoch and its
+    test;
+39. the ``kernels`` line (all four kernels), then the result line.
 
-A rank of phases 33-34 is ``python3 chip_smoke.py --worker <kind>`` with
+A rank of phases 36-37 is ``python3 chip_smoke.py --worker <kind>`` with
 the torchrun variables set (``run_workers``); a rank that fails or runs
 past its timeout stops every rank and fails the phase.
 
-Phases 3, 7 and 29 change PyTorch's precision settings, and only around the
+Phases 3, 7 and 32 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
 is taken again, up to four times, until it records every launch of the
 hand-written kernels that its run made (``cuda_trace``).
@@ -1115,8 +1138,9 @@ def phase_train_profile() -> dict:
 # test batch: its residual stacks run at T = 22848 / 11424 / 2856, no
 # multiple of a K1 tile (f32 128 / 64 / 32)
 EVAL_UTTERANCE = 6
+# the published default logging (tensorboard): phase cli reads its event files back
 CLI_ARGS = ("lightning_datamodule=bwe", "lightning_module=eben", "callbacks=bwe_checkpoint",
-            "logging=csv", "lightning_datamodule.dataset_name_principal=synthetic",
+            "lightning_datamodule.dataset_name_principal=synthetic",
             "++lightning_datamodule.synthetic_size=64",
             "++trainer.limit_val_batches=4", "++trainer.limit_test_batches=4")
 CLI_STEPS_PER_EPOCH, CLI_VAL_BATCHES, CLI_TEST_BATCHES = 2, 4, 4  # 64 utterances at batch 32
@@ -1298,6 +1322,45 @@ def wait_against_step(steps: dict) -> dict:
             "later_wait_over_step_max": max(later), "later_wait_over_step_median": float(np.median(later))}
 
 
+def tensorboard_check(files: set, logged: list) -> dict:
+    """The one event file a CLI run wrote (the published default logger),
+    read back with ``read_events`` (every record's checksums checked): its
+    scalars must be the trainer's, step by step and in order (float32, as
+    TensorBoard keeps them), train and validation among them; every audio
+    record must decode as a 16-bit mono WAV at 16 kHz of its stated length."""
+    import io
+    import wave
+
+    from vibravox_tpu_torch.core.logging import read_events
+
+    if len(files) != 1:
+        raise AssertionError(f"the CLI run wrote {len(files)} event files: {sorted(map(str, files))}")
+    (path,) = files
+    events = read_events(path)
+    values = [(e["step"], v) for e in events[1:] for v in e.get("values", [])]
+    scalars = [(step, v["tag"], v["simple_value"]) for step, v in values if "simple_value" in v]
+    want = [(step, k, float(np.float32(v))) for step, d in logged for k, v in d.items()]
+    audio = [v["audio"] for _, v in values if "audio" in v]
+    texts = [v["tag"] for _, v in values if "text" in v]
+    wavs = []
+    for a in audio:
+        with wave.open(io.BytesIO(a["encoded_audio_string"])) as w:
+            wavs.append((w.getframerate(), w.getnchannels(), w.getsampwidth(), w.getnframes()))
+    out = {"file": path.name, "bytes": path.stat().st_size, "events": len(events), "scalars": len(scalars),
+           "train_scalars": sum(t.startswith("train/") for _, t, _ in scalars),
+           "validation_scalars": sum(t.startswith("validation/") for _, t, _ in scalars),
+           "test_scalars": sum(t.startswith("test/") for _, t, _ in scalars),
+           "audio_records": len(audio), "texts": texts, "scalars_equal_logged": scalars == want}
+    if events[0].get("file_version") != "brain.Event:2" or not out["scalars_equal_logged"]:
+        raise AssertionError(f"the event file's scalars differ from the trainer's: {out}")
+    if not (out["train_scalars"] and out["validation_scalars"] and audio):
+        raise AssertionError(f"the event file lacks train or validation scalars or audio: {out}")
+    if not all(wav == (16000, 1, 2, a["length_frames"]) and a["sample_rate"] == 16000 and a["length_frames"] > 0
+               for wav, a in zip(wavs, audio)):
+        raise AssertionError(f"an audio record is no 16 kHz mono WAV of its length: {wavs}")
+    return out
+
+
 def phase_cli(run_dir: str) -> dict:
     """The CLI's main path: ``vibravox_tpu_torch.run.main`` with CLI_ARGS,
     at full width, in ``run_dir`` (fit two epochs of two steps at batch 32,
@@ -1322,7 +1385,12 @@ def phase_cli(run_dir: str) -> dict:
     train_steps = {"events": [], "adam_step_devices": set()}
     train_step, eval_step, eval_metrics, stoi, test = (
         EBENTask.train_step, EBENTask.eval_step, EBENTask.eval_metrics, se_metrics.stoi, Trainer.test)
-    fit = Trainer.fit
+    fit, log = Trainer.fit, Trainer._log
+    logged: list = []
+
+    def recorded_log(self, scalars):
+        logged.append((self.global_step, dict(scalars)))
+        return log(self, scalars)
 
     def kept_fit(self, *args, **kwargs):
         marks["trainer"] = self
@@ -1372,13 +1440,17 @@ def phase_cli(run_dir: str) -> dict:
         reset_counts()
         train_steps["events"].clear()
         train_steps["adam_step_devices"].clear()
+        logged.clear()
+        before = set(Path(run_dir).glob("tensorboard/events.out.tfevents.*"))
         t0 = time.perf_counter()
         metrics = run.main([*CLI_ARGS, f"++run_dir={run_dir}", f"++trainer.max_epochs={epochs}"])
         counts = read_counts()
         fit = marks["fit_counts"]
         steps = {"train_step_ms": [a.elapsed_time(b) for a, b in train_steps["events"]],
                  "data_wait_ms": [1e3 * w for w in marks["trainer"].data_wait_seconds],
-                 "adam_step_devices": sorted(train_steps["adam_step_devices"])}
+                 "adam_step_devices": sorted(train_steps["adam_step_devices"]),
+                 "tensorboard": tensorboard_check(set(Path(run_dir).glob("tensorboard/events.out.tfevents.*"))
+                                                  - before, list(logged))}
         return metrics, {"fit": fit, "test": {k: counts[k] - fit[k] for k in counts}}, \
             marks["fit_end"] - t0, marks["test_end"] - marks["fit_end"], steps
 
@@ -1390,6 +1462,7 @@ def phase_cli(run_dir: str) -> dict:
     EBENTask.train_step, EBENTask.eval_step = timed_train_step, timed_eval_step
     EBENTask.eval_metrics = timed(eval_metrics, "metrics")
     se_metrics.stoi, Trainer.test, Trainer.fit = timed(stoi, "stoi"), marked_test, kept_fit
+    Trainer._log = recorded_log
     try:
         metrics, launches, fit_s, test_s, steps = run_cli(run_dir, 2)
         test_timing = {k: list(v) for k, v in timing.items()}
@@ -1402,7 +1475,7 @@ def phase_cli(run_dir: str) -> dict:
         progress2 = json.loads((ckpt / "trainer_state.json").read_text())
     finally:
         EBENTask.train_step, EBENTask.eval_step, EBENTask.eval_metrics = train_step, eval_step, eval_metrics
-        se_metrics.stoi, Trainer.test, Trainer.fit = stoi, test, fit
+        se_metrics.stoi, Trainer.test, Trainer.fit, Trainer._log = stoi, test, fit, log
 
     per_batch = {k: [1e3 * x for x in v] for k, v in test_timing.items()}
     fit_out = {"phase": "cli_fit", "epochs": 2, "steps": 2 * CLI_STEPS_PER_EPOCH, "B": 32,
@@ -1765,6 +1838,195 @@ def phase_npz() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the multi-scale MelGAN discriminator and the opt-in int8 discriminator convs
+# ---------------------------------------------------------------------------
+
+MELGAN_B, MELGAN_T, MELGAN_TOL, MELGAN_GRAD_TOL = 4, 40000, 1e-4, 1e-3  # 2.5 s at 16 kHz
+
+
+def phase_melgan_multiscales(smi: str) -> dict:
+    """``MelganMultiScalesDiscriminator(16000, scales=3)`` at full width on
+    b4 x 2.5 s, float32 under strict_float32, on the card against the same
+    weights on the CPU: every scale's resampled input and 8 embeddings
+    within 1e-4 of each tensor's scale, and the gradient of a fixed linear
+    read-out of every embedding with respect to the audio (through both
+    resamplers) within 1e-3 of its norm (relative L2; its largest
+    deviation over its scale is reported).  The gradient's bar is wider:
+    a pre-activation within rounding of zero takes the leaky ReLU's other
+    slope on one side, which moves the gradient over that unit's receptive
+    field; the CPU's own float32 gradient is 1.6e-4 (L2) and 2.7e-3 (max,
+    of scale) from float64 at b2 x 2.5 s."""
+    from vibravox_tpu_torch.models.melgan_discriminator import MelganMultiScalesDiscriminator
+
+    torch.manual_seed(0)
+    cpu = MelganMultiScalesDiscriminator(16000, scales=3, device="cpu")
+    gpu = MelganMultiScalesDiscriminator(16000, scales=3, device="cuda")
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    gen = torch.Generator().manual_seed(3)
+    audio = torch.randn(MELGAN_B, 1, MELGAN_T, generator=gen) * 0.3
+
+    def run(disc, x):
+        x = x.clone().requires_grad_(True)
+        with strict_float32():
+            downs = disc.get_downsampled_versions(x.detach())
+            embs = disc.embed(x)
+            heads = torch.Generator().manual_seed(4)
+            loss = sum((e * torch.randn(e.shape, generator=heads).to(e.device)).sum()
+                       for scale in embs for e in scale)
+            loss.backward()
+        return downs, embs, x.grad
+
+    want = run(cpu, audio)
+    t0 = time.perf_counter()
+    got = run(gpu, audio.cuda())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def err(a, b):
+        scale = b.abs().max().item()
+        return (a.detach().cpu() - b.detach()).abs().max().item() / max(scale, 1e-12)
+
+    down_err = [err(a, b) for a, b in zip(got[0], want[0])]
+    emb_err = [[err(a, b) for a, b in zip(sa, sb)] for sa, sb in zip(got[1], want[1])]
+    grad_err = err(got[2], want[2])
+    grad_l2 = ((got[2].cpu() - want[2]).norm() / want[2].norm()).item()
+    out = {"phase": "melgan_multiscales", "card": smi, "B": MELGAN_B, "T": MELGAN_T, "scales": 3,
+           "dtype": "float32",
+           "resampled_lengths": [int(d.shape[-1]) for d in got[0]],
+           "embedding_shapes": [[list(e.shape) for e in scale] for scale in got[1]],
+           "resampled_err_over_scale": down_err, "embedding_err_over_scale": emb_err,
+           "audio_grad_err_over_scale": grad_err, "audio_grad_rel_l2": grad_l2, "tol": MELGAN_TOL,
+           "grad_rel_l2_tol": MELGAN_GRAD_TOL, "card_forward_backward_wall_s": wall}
+    emit(out)
+    if [int(d.shape[-1]) for d in got[0]] != [MELGAN_T, MELGAN_T // 2, MELGAN_T // 4]:
+        raise AssertionError(f"resampled lengths {out['resampled_lengths']}")
+    if not (max(down_err + sum(emb_err, [])) <= MELGAN_TOL and grad_l2 <= MELGAN_GRAD_TOL):
+        raise AssertionError(f"the multi-scale MelGAN on the card differs from the CPU: {out}")
+    return out
+
+
+INT8_STEP_WARMUP, INT8_STEPS, INT8_TWIN_ROWS = 2, 5, 2
+INT8_PEAK_OPS = 1979e12  # H100 SXM int8 tensor cores, dense, at 700 W
+
+
+def int8_conv_row(x_shape, w_shape, stride, pad, dilation, groups, seed: int, smi: str) -> dict:
+    """The int8 conv at one shape: the GEMM route on the card equal in int32
+    to the exact integer convolution (a float64 cuDNN conv on the card:
+    every partial sum is an integer below 2^53) over the whole batch, and to
+    the plain int32 twin on the CPU over the first INT8_TWIN_ROWS rows; then
+    the route's time, the whole int8 forward's (both quantisations, the
+    route, the rescale) and cuDNN's bf16 conv's at the same shape, in turns,
+    with their bounds."""
+    from vibravox_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(seed)
+    qx = torch.randint(-127, 128, x_shape, generator=gen, dtype=torch.int8).cuda()
+    qw = torch.randint(-127, 128, w_shape, generator=gen, dtype=torch.int8).cuda()
+    y = quant.int8_conv1d(qx, qw, stride, pad, dilation, groups)
+    exact = F.conv1d(F.pad(qx.double(), pad), qw.double(), None, stride, 0, dilation, groups)
+    twin = quant.plain_int8_conv1d(qx[:INT8_TWIN_ROWS].cpu(), qw.cpu(), stride, pad, dilation, groups)
+    torch.cuda.synchronize()
+    equal_exact = bool(torch.equal(y.double(), exact))
+    equal_twin = bool(torch.equal(y[:INT8_TWIN_ROWS].cpu(), twin))
+    xb = (torch.randn(x_shape, generator=gen) * 0.3).to("cuda", torch.bfloat16)
+    wb = (torch.randn(w_shape, generator=gen) * 0.05).to("cuda", torch.bfloat16)
+    times = {"int8_route": [], "int8_forward": [], "cudnn_bf16": []}
+    with torch.no_grad():
+        calls = {"int8_route": lambda: quant.int8_conv1d(qx, qw, stride, pad, dilation, groups),
+                 "int8_forward": lambda: quant.conv1d_int8_ste(xb, wb, stride, pad, dilation, groups),
+                 "cudnn_bf16": lambda: F.conv1d(F.pad(xb, pad), wb, None, stride, 0, dilation, groups)}
+        for order in (("int8_route", "int8_forward", "cudnn_bf16"), ("cudnn_bf16", "int8_forward", "int8_route")):
+            for k in order:
+                times[k].append(cuda_ms(calls[k], iters=10))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    b, cout, t_out = y.shape
+    macs = b * t_out * cout * w_shape[1] * w_shape[2]
+    bytes_int8 = qx.numel() + qw.numel() + 4 * y.numel()
+    bytes_bf16 = 2 * (xb.numel() + wb.numel() + y.numel())
+    row = {"x": list(x_shape), "w": list(w_shape), "stride": stride, "pad": list(pad), "dilation": dilation,
+           "groups": groups, "T_out": t_out, "M_per_group": b * t_out, "K": w_shape[1] * w_shape[2],
+           "N_per_group": cout // groups, "equal_exact_int32": equal_exact,
+           "equal_cpu_twin_first_rows": equal_twin, **{f"{k}_ms": v for k, v in med.items()},
+           "int8_route_bound_ms": max(2 * macs / INT8_PEAK_OPS, bytes_int8 / HBM_BYTES_PER_S) * 1e3,
+           "cudnn_bf16_bound_ms": max(2 * macs / PEAK_FLOPS[torch.bfloat16], bytes_bf16 / HBM_BYTES_PER_S) * 1e3,
+           "int8_forward_over_cudnn_bf16": med["int8_forward"] / med["cudnn_bf16"]}
+    emit({"phase": "int8_conv", "card": smi, **row})
+    if not (equal_exact and equal_twin):
+        raise AssertionError(f"the int8 conv on the card differs from the integer convolution: {row}")
+    return row
+
+
+def phase_int8_disc(smi: str) -> dict:
+    """The opt-in int8 discriminator (``VIBRAVOX_INT8_DISC=1``).  One eben.yaml
+    bf16 train step at b32 x 2.5 s with the flag against one without (the
+    same weights and batch), in turns, float, int8, int8, float, each
+    INT8_STEP_WARMUP steps then INT8_STEPS synchronised steps: losses and
+    both networks' gradient norms finite; every int8 conv shape the int8
+    step ran at batch 32 (the generator step's discriminator forward; the
+    discriminator step runs the same layers at 64 rows) then goes through
+    ``int8_conv_row``."""
+    from vibravox_tpu_torch.ops import quant
+
+    batch = {k: v.cuda() for k, v in dp_batch(TRAIN_B, seed=9).items()}
+    tasks = {}
+    for name, flag in (("float", "0"), ("int8", "1")):
+        with mock.patch.dict(os.environ, {"VIBRAVOX_INT8_DISC": flag}):
+            torch.manual_seed(0)
+            tasks[name] = make_task("cuda", small=False, optimizer=adam(3e-4, betas=(0.5, 0.9)),
+                                    compute_dtype="bfloat16")
+        tasks[name].track_grad_norm = 2
+    int8_layers = sum(1 for m in tasks["int8"].discriminator.modules() if getattr(m, "int8", False))
+    states = {k: t.init_state(0) for k, t in tasks.items()}
+    shapes, logs, ms = {}, {"float": [], "int8": []}, {"float": [], "int8": []}
+    route = quant.gemm_int8_conv1d  # what int8_conv1d runs on the card, wrapped to record the shapes
+
+    def recorded(qx, qw, stride, pad, dilation=1, groups=1):
+        shapes.setdefault((tuple(qx.shape), tuple(qw.shape), stride, tuple(pad), dilation, groups), 0)
+        shapes[(tuple(qx.shape), tuple(qw.shape), stride, tuple(pad), dilation, groups)] += 1
+        return route(qx, qw, stride, pad, dilation, groups)
+
+    def steps(name):
+        def one():
+            states[name], lg = tasks[name].train_step(states[name], batch)
+            logs[name].append({k: float(v) for k, v in lg.items()})
+        timed = timed_calls(one, INT8_STEP_WARMUP + INT8_STEPS)
+        ms[name].extend(timed[INT8_STEP_WARMUP:])
+
+    quant.gemm_int8_conv1d = recorded
+    try:
+        launches0 = quant.int8_conv1d.launches
+        for name in ("float", "int8", "int8", "float"):
+            steps(name)
+        launches = quant.int8_conv1d.launches - launches0
+    finally:
+        quant.gemm_int8_conv1d = route
+    step_rows = {k: {"ms_median": float(np.median(v)), "ms_p10": float(np.percentile(v, 10)),
+                     "ms_p90": float(np.percentile(v, 90)), "ms": v} for k, v in ms.items()}
+    n_steps = 2 * (INT8_STEP_WARMUP + INT8_STEPS)
+    conv_rows = [int8_conv_row(*key, seed=20 + i, smi=smi)
+                 for i, key in enumerate(sorted(k for k in shapes if k[0][0] == TRAIN_B))]
+    total = {k: sum(r[k] for r in conv_rows) for k in ("int8_route_ms", "int8_forward_ms", "cudnn_bf16_ms",
+                                                      "int8_route_bound_ms", "cudnn_bf16_bound_ms")}
+    out = {"phase": "int8_disc", "card": smi, "B": TRAIN_B, "T": TRAIN_T, "compute_dtype": "bfloat16",
+           "int8_layers": int8_layers, "int8_launches_per_step": launches / n_steps,
+           "train_step": step_rows, "int8_over_float_step": step_rows["int8"]["ms_median"]
+           / step_rows["float"]["ms_median"],
+           "last_logs": {k: v[-1] for k, v in logs.items()},
+           "shapes_b32": len(conv_rows), "calls_by_shape": {str(k): v for k, v in shapes.items()},
+           "sum_over_b32_shapes": total}
+    emit(out)
+    if int8_layers != 3 * 6 + 5:
+        raise AssertionError(f"{int8_layers} int8 layers in the published discriminator, not 23")
+    if not all(math.isfinite(v) for lg in logs.values() for row in lg for v in row.values()):
+        raise AssertionError(f"a loss or a gradient norm of a train step is not finite: {out['last_logs']}")
+    if not any("grad_2.0_norm" in k for k in logs["int8"][-1]):
+        raise AssertionError("the train step logged no gradient norm")
+    if launches == 0 or len(conv_rows) != int8_layers:
+        raise AssertionError(f"int8 launches {launches}, {len(conv_rows)} shapes at batch {TRAIN_B}")
+    return out
+
+
 NOISY_CLI_ARGS = ("lightning_datamodule=noisybwe", "lightning_module=eben", "callbacks=bwe_checkpoint",
                   "logging=csv", "lightning_datamodule.dataset_name=synthetic",
                   "++lightning_datamodule.synthetic_size=64",
@@ -2122,16 +2384,17 @@ def phase_stp_train(weights: str) -> dict:
     return {"train": out, "profile": prof_out}
 
 
-def phase_cli_stp(weights: str) -> dict:
+def phase_cli_stp(weights: str, run_dir: str) -> dict:
     """``run.main`` with ``lightning_datamodule=stp lightning_module=wav2vec2_for_stp
     callbacks=stp_checkpoint logging=csv`` on the synthetic source (16
     utterances: two steps an epoch at batch 8) and the base model through
     the published from_pretrained config reading ``weights``: fit two epochs
     (float32, as the published trainer runs) validating two batches an
     epoch, then test("last") on four batch-1 utterances; then again with
-    max_epochs 3, which resumes at epoch 2.  The fit is timed; each test
-    batch is split into the eval step (synchronised) and the host decode +
-    CER.  The hand-written kernels' counts are read around each run."""
+    max_epochs 3, which resumes at epoch 2, in ``run_dir`` (phase
+    ``scripts`` exports its ``last``).  The fit is timed; each test batch is
+    split into the eval step (synchronised) and the host decode + CER.  The
+    hand-written kernels' counts are read around each run."""
     from vibravox_tpu_torch import run
 
     timing = {"eval_step": [], "decode_cer": []}
@@ -2178,9 +2441,8 @@ def phase_cli_stp(weights: str) -> dict:
 
     Wav2Vec2STPTask.eval_step, Wav2Vec2STPTask.eval_metrics, Trainer.test = timed_eval_step, timed_metrics, marked_test
     try:
-        with tempfile.TemporaryDirectory(prefix="vibravox_stp_cli_") as run_dir:
-            first = run_cli(run_dir, 2)
-            resumed = run_cli(run_dir, 3)
+        first = run_cli(run_dir, 2)
+        resumed = run_cli(run_dir, 3)
     finally:
         Wav2Vec2STPTask.eval_step, Wav2Vec2STPTask.eval_metrics, Trainer.test = eval_step, eval_metrics, test
     out = {"phase": "cli_stp", "B": STP_B, "steps_per_epoch": STP_CLI_EPOCH_STEPS,
@@ -2197,6 +2459,79 @@ def phase_cli_stp(weights: str) -> dict:
             raise AssertionError(f"hand-written kernels launched on the STP CLI: {r['launches']}")
         if len(r["eval_step_ms"]) != STP_CLI_TEST_BATCHES:
             raise AssertionError(f"timed test batches {r['eval_step_ms']}")
+    return out
+
+
+def phase_scripts(cli_dir: str, stp_cli_dir: str, smi: str) -> dict:
+    """The port's remaining scripts on this run's own checkpoints, in a
+    temporary directory: ``push_dis_to_hub`` on phase ``cli``'s ``last``,
+    its export loaded on the card by ``eben_discriminator_from_pretrained``
+    bit-equal to the checkpoint's discriminator; ``upload_phonemizer_to_hub``
+    on phase ``cli_stp``'s ``last`` (the base model), loaded on the card by
+    ``wav2vec2_for_ctc_from_pretrained`` bit-equal to the checkpoint's
+    model; ``test_all_phonemizers`` on that export over the six sensors of
+    the synthetic source, two utterances each, on the card (finite PERs);
+    ``sweep --dry-run`` over the three published tables (one command a
+    line).  Each script's wall."""
+    import contextlib
+    import io
+
+    from vibravox_tpu_torch.models.hub import eben_discriminator_from_pretrained
+    from vibravox_tpu_torch.models.wav2vec2 import wav2vec2_for_ctc_from_pretrained
+    from vibravox_tpu_torch.scripts import push_dis_to_hub, sweep, test_all_phonemizers, upload_phonemizer_to_hub
+
+    def same(sd, model):
+        got = model.state_dict()
+        return list(got) == list(sd) and all(torch.equal(got[k].cpu(), sd[k].cpu()) for k in sd)
+
+    wall = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="vibravox_scripts_") as tmp:
+        last = Path(cli_dir) / "checkpoints" / "last"
+        timed("push_dis_to_hub", lambda: push_dis_to_hub.main(["--checkpoint", str(last), "--out", f"{tmp}/dis"]))
+        disc_sd = torch.load(last / "state.pt", map_location="cpu", weights_only=True)["discriminator"]
+        disc = eben_discriminator_from_pretrained(f"{tmp}/dis/discriminator", q=4, min_channels=24)
+        disc_equal = same(disc_sd, disc) and next(disc.parameters()).is_cuda
+        stp_last = Path(stp_cli_dir) / "checkpoints" / "last"
+        timed("upload_phonemizer_to_hub", lambda: upload_phonemizer_to_hub.main(
+            ["--checkpoint", str(stp_last), "--out", f"{tmp}/phonemizer"]))
+        model_sd = torch.load(stp_last / "state.pt", map_location="cpu", weights_only=True)["model"]
+        model = wav2vec2_for_ctc_from_pretrained(f"{tmp}/phonemizer")
+        phonemizer_equal = same(model_sd, model) and next(model.parameters()).is_cuda
+        exported = sorted(p.name for p in Path(f"{tmp}/phonemizer").iterdir())
+        del model
+        per = timed("test_all_phonemizers", lambda: test_all_phonemizers.main(
+            ["--dataset", "synthetic", "--phonemizers", f"{tmp}/phonemizer", "--out", f"{tmp}/per", "--limit", "2"]))
+        confusions = json.loads(Path(f"{tmp}/per/confusions.json").read_text())
+        dry = {}
+        for table in ("bwe", "spkv", "stp"):
+            path = root / "configs" / "sweeps" / f"{table}.txt"
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                timed(f"sweep_{table}", lambda: sweep.main([str(path), "--dry-run"]))
+            lines = buf.getvalue().splitlines()
+            dry[table] = {"commands": len(lines), "table_lines": len(sweep.commands(str(path))),
+                          "first": lines[0] if lines else None}
+    out = {"phase": "scripts", "card": smi, "discriminator_bit_equal": disc_equal,
+           "phonemizer_bit_equal": phonemizer_equal,
+           "phonemizer_files": exported, "per_matrix": per, "confusion_kinds": len(confusions),
+           "sweep_dry_run": dry, "wall_s": wall}
+    emit(out)
+    if not (disc_equal and phonemizer_equal):
+        raise AssertionError(f"an export did not load back bit-equal: {out}")
+    if len(per) != 6 or not all(math.isfinite(v) for v in per.values()):
+        raise AssertionError(f"the PER matrix {per}")
+    if not all(d["commands"] == d["table_lines"] > 0 and "-m vibravox_tpu_torch.run" in d["first"]
+               for d in dry.values()):
+        raise AssertionError(f"the sweep's dry runs {dry}")
     return out
 
 
@@ -3674,14 +4009,14 @@ def phase_fsdp_tp() -> dict:
 def phase_cli_dp(run_dir: str) -> dict:
     """The path of a multi-GPU user: ``python -m torch.distributed.run
     --standalone --nproc_per_node 1 -m vibravox_tpu_torch.run`` with
-    CLI_ARGS (the EBEN CLI, ``logging=csv``, the default ``trainer.mesh``
+    CLI_ARGS and ``logging=csv`` (the EBEN CLI, the default ``trainer.mesh``
     of every process, over NCCL) cut to one step an epoch and one
     validation and test batch (CLI_DP_CUT): fit two epochs and
     test("last"), then a resumed third epoch and its test.  Each run's
     wall; the progress, the checkpoints and the CSV's finite test metrics
     are checked."""
     args = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
-            "-m", "vibravox_tpu_torch.run", *CLI_ARGS, *CLI_DP_CUT, f"++run_dir={run_dir}"]
+            "-m", "vibravox_tpu_torch.run", *CLI_ARGS, "logging=csv", *CLI_DP_CUT, f"++run_dir={run_dir}"]
     runs = []
     for epochs in (2, 3):
         t0 = time.perf_counter()
@@ -3742,16 +4077,20 @@ def main() -> int:
     phase_augment()
     phase_loader(train["step_ms_median"])
     phase_npz()
+    phase_melgan_multiscales(smi)
+    phase_int8_disc(smi)
     # the two CLI runs stay on disk for phase cli_squim, which tests them again
     with tempfile.TemporaryDirectory(prefix="vibravox_cli_") as cli_dir, \
             tempfile.TemporaryDirectory(prefix="vibravox_noisy_cli_") as noisy_dir:
         cli = phase_cli(cli_dir)
         noisy = phase_cli_noisybwe(noisy_dir)
         phase_stp_parity()
-        with tempfile.TemporaryDirectory(prefix="vibravox_stp_weights_") as weights:
+        with tempfile.TemporaryDirectory(prefix="vibravox_stp_weights_") as weights, \
+                tempfile.TemporaryDirectory(prefix="vibravox_stp_cli_") as stp_cli_dir:
             stp_weights(weights)
             stp = phase_stp_train(weights)
-            cli_stp = phase_cli_stp(weights)
+            cli_stp = phase_cli_stp(weights, stp_cli_dir)
+            phase_scripts(cli_dir, stp_cli_dir, smi)
         spkv = {"parity": phase_spkv_parity(), "embed": phase_spkv_embed(), "cli": phase_cli_spkv()}
         mimi = {"parity": phase_mimi_parity(), "train": phase_mimi_train(), "codec": phase_codec(),
                 "cli": phase_cli_mimi()}

@@ -364,3 +364,69 @@ def test_mimi_codec_and_train_step_on_card_match_cpu(cuda):
             assert torch.equal(after_card[k], b) and torch.equal(after_cpu[k], b), k
     assert counts == (residual_stack.launches, residual_stack_backward.launches, framed_dft_magnitude.launches,
                       framed_dft_backward.launches)
+
+
+# the int8 discriminator convolutions (ops/quant.py): torch._int_mm, no hand-written kernel
+
+INT8_CASES = [  # (C_in, C_out, k, stride, pad, dilation, groups, B, T): MelGAN and EBEN stages, K and N padded
+    (256, 1024, 41, 4, (20, 20), 1, 4, 4, 625),
+    (1024, 1024, 5, 1, (2, 2), 1, 1, 4, 40),
+    (24, 48, 7, 2, (3, 3), 3, 4, 4, 2500),
+    (8, 8, 5, 1, (2, 2), 1, 1, 1, 3),
+]
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_conv_on_card_equals_its_int32_twin(case, cuda):
+    from vibravox_tpu_torch.ops import quant
+
+    cin, cout, k, stride, pad, d, g, b, t = case
+    gen = torch.Generator().manual_seed(0)
+    qx = torch.randint(-127, 128, (b, cin, t), generator=gen, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (cout, cin // g, k), generator=gen, dtype=torch.int8)
+    before = quant.int8_conv1d.launches
+    got = quant.int8_conv1d(qx.to(cuda), qw.to(cuda), stride, pad, d, g)
+    torch.cuda.synchronize()
+    assert quant.int8_conv1d.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), quant.plain_int8_conv1d(qx, qw, stride, pad, d, g))
+
+
+def test_int8_mm_raises_on_a_shape_int_mm_refuses(cuda):
+    """No fallback: an unpadded K (12, not a multiple of 8) is refused on
+    the card, where the conv route pads it first."""
+    from vibravox_tpu_torch.ops import quant
+
+    a = torch.ones(32, 12, dtype=torch.int8, device=cuda)
+    w = torch.ones(8, 12, dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError):
+        quant.int8_mm(a, w)
+    # the same K = 4 x 3 = 12 through the conv, which pads it to 16
+    x = torch.ones(2, 4, 30, dtype=torch.int8, device=cuda)
+    w3 = torch.ones(8, 4, 3, dtype=torch.int8, device=cuda)
+    assert torch.equal(quant.int8_conv1d(x, w3, 1, (1, 1)).cpu(),
+                       quant.plain_int8_conv1d(x.cpu(), w3.cpu(), 1, (1, 1)))
+
+
+def test_int8_discriminator_train_step_on_card(cuda, monkeypatch):
+    """The EBEN discriminator under VIBRAVOX_INT8_DISC=1 on the card: its
+    forward within 15% of scale of the float path, finite gradients."""
+    from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
+    from vibravox_tpu_torch.ops import quant
+
+    monkeypatch.delenv("VIBRAVOX_INT8_DISC", raising=False)
+    plain = DiscriminatorEBENMultiScales(q=4, min_channels=24, device=cuda)
+    monkeypatch.setenv("VIBRAVOX_INT8_DISC", "1")
+    disc = DiscriminatorEBENMultiScales(q=4, min_channels=24, device=cuda)
+    disc.load_state_dict(plain.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    bands = (torch.randn(2, 4, 2500, generator=gen) * 0.3).to(cuda).requires_grad_(True)
+    audio = (torch.randn(2, 1, 10000, generator=gen) * 0.3).to(cuda)
+    before = quant.int8_conv1d.launches
+    out = disc.embed(bands, audio)
+    assert quant.int8_conv1d.launches == before + 3 * 6 + 5
+    with torch.no_grad():
+        ref = plain.embed(bands, audio)
+    for a, b in zip(sum(out, []), sum(ref, [])):
+        assert (a - b).abs().max().item() <= 0.15 * b.abs().max().item() + 1e-6
+    sum(e[-1].sum() for e in out).backward()
+    assert torch.isfinite(bands.grad).all() and all(torch.isfinite(p.grad).all() for p in disc.parameters())

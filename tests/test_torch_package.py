@@ -2,7 +2,7 @@
 
 The port must stand alone: no module of ``vibravox_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax, the JAX package or
-``transformers`` or ``safetensors`` (the GPU machine has none of them).  Its entry points
+``transformers``, ``safetensors`` or ``tensorboardX`` (the GPU machine has none of them).  Its entry points
 run on the GPU unless asked for the CPU, and raise without a GPU."""
 
 import ast
@@ -17,7 +17,8 @@ from vibravox_tpu_torch.models.eben_generator import EBENGenerator
 from vibravox_tpu_torch.serving import EnhanceServer, StreamingEnhancer
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vibravox_tpu", "transformers", "safetensors"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vibravox_tpu", "transformers", "safetensors",
+             "tensorboardX"}
 
 
 def _imported_roots(path: Path):
@@ -319,3 +320,31 @@ def test_native_pipeline_has_no_switch_and_no_fallback():
     for module in (build, pipeline):
         source = inspect.getsource(module)
         assert "os.environ" not in source and "except" not in source
+
+
+def test_every_config_target_resolves_in_the_port():
+    """Every ``_target_`` under ``configs/`` names an object after the CLI's
+    rewrite (``run.port_target``), as ``core/config.py::_locate`` finds it;
+    none is left in the JAX package or in ``transformers``."""
+    import yaml
+
+    from vibravox_tpu_torch.core.config import _locate
+    from vibravox_tpu_torch.run import port_target
+
+    def targets(node):
+        if isinstance(node, dict):
+            if isinstance(node.get("_target_"), str):
+                yield node["_target_"]
+            for v in node.values():
+                yield from targets(v)
+        elif isinstance(node, list):
+            for v in node:
+                yield from targets(v)
+
+    found = {t for path in sorted((ROOT / "configs").rglob("*.yaml"))
+             for t in targets(yaml.safe_load(path.read_text()))}
+    assert "vibravox_tpu.models.melgan_discriminator.MelganMultiScalesDiscriminator" in found and len(found) > 25
+    for target in sorted(found):
+        ported = port_target(target)
+        assert not ported.startswith(("vibravox_tpu.", "transformers.")), ported
+        assert _locate(ported) is not None, ported

@@ -25,7 +25,7 @@ import torch
 from vibravox_tpu_torch.core.callbacks import ModelSummary
 from vibravox_tpu_torch.core.checkpoint import CheckpointManager
 from vibravox_tpu_torch.core.guard import AnomalyDetected, FailureGuard
-from vibravox_tpu_torch.core.logging import CSVLogger, MultiLogger, TensorBoardLogger
+from vibravox_tpu_torch.core.logging import CSVLogger, MultiLogger, TensorBoardLogger, read_events
 from vibravox_tpu_torch.core.loop import Trainer, parallel_for
 from vibravox_tpu_torch.core.optim import MultiSteps
 from vibravox_tpu_torch.parallel.mesh import MeshConfig
@@ -377,9 +377,13 @@ def test_loggers(tmp_path, monkeypatch):
     both.flush()
     assert (tmp_path / "csv" / "metrics.csv").read_text().splitlines() == ["step,a,b", "0,1.0,", "1,,2.0"]
     assert (tmp_path / "csv" / "x_y.txt").read_text() == "hello"
+    # the TensorBoard writer is the port's own: it runs without tensorboardX
     monkeypatch.setitem(sys.modules, "tensorboardX", None)
-    with pytest.raises(ImportError):
-        TensorBoardLogger(str(tmp_path / "tb"))
+    tb = TensorBoardLogger(str(tmp_path / "tb"))
+    MultiLogger(tb, csv).log_scalars({"c": 3.0}, 2)
+    tb.close()
+    events = read_events(tb.path)
+    assert [(e["step"], v["tag"], v["simple_value"]) for e in events[1:] for v in e["values"]] == [(2, "c", 3.0)]
 
 
 def test_step_timer_and_trace_window(tmp_path):

@@ -145,6 +145,24 @@ class PhonemeCTCTokenizer:
     def batch_decode(self, sequences, group_tokens: bool = True) -> List[str]:
         return [self.decode(np.asarray(s).reshape(-1), group_tokens=group_tokens) for s in sequences]
 
+    def save_pretrained(self, directory: str) -> List[str]:
+        """Writes ``vocab.json`` and ``special_tokens_map.json`` as HF's
+        ``Wav2Vec2CTCTokenizer.save_pretrained`` does, and a
+        ``tokenizer_config.json`` of the special tokens and the class, which
+        ``load_phoneme_tokenizer`` and HF read.  Returns the paths."""
+        out = Path(directory)
+        out.mkdir(parents=True, exist_ok=True)
+        special = {"bos_token": self.bos_token, "eos_token": self.eos_token, "pad_token": self.pad_token,
+                   "unk_token": self.unk_token}
+        config = {**special, "word_delimiter_token": self.word_delimiter_token,
+                  "clean_up_tokenization_spaces": self.clean_up_tokenization_spaces, "do_lower_case": False,
+                  "replace_word_delimiter_char": " ", "tokenizer_class": "Wav2Vec2CTCTokenizer"}
+        files = {"vocab.json": self.vocab, "special_tokens_map.json": special, "tokenizer_config.json": config}
+        for name, obj in files.items():
+            (out / name).write_text(json.dumps(obj, indent=2, sort_keys=True, ensure_ascii=False) + "\n",
+                                    encoding="utf-8")
+        return [str(out / name) for name in files]
+
 
 def load_phoneme_tokenizer(name_or_path: str = "Cnam-LMSSC/vibravox-phonemes-tokenizer") -> PhonemeCTCTokenizer:
     """A local directory's ``vocab.json`` (and the special tokens of its

@@ -49,6 +49,7 @@ from vibravox_tpu_torch.ops.pqmf import design_pqmf_bank
 __all__ = [
     "eben_generator_params_from_jax",
     "eben_discriminator_params_from_jax",
+    "melgan_multiscales_params_from_jax",
     "eben_train_state_from_jax",
     "wav2vec2_state_dict_from_jax",
     "ecapa2_state_dict_from_jax",
@@ -117,11 +118,32 @@ def eben_discriminator_params_from_jax(params: Mapping[str, Any]) -> Dict[str, t
         for i in range(1, 7):
             _put_wn(sd, f"{prefix}.{i}.0", node[f"conv_{i}"])
         _put_wn(sd, f"{prefix}.7", node["conv_7"])
-    node = p["melgan"]
-    _put_wn(sd, "melgan_discriminator.discriminator.0.1", node["conv_0"])
+    _put_melgan(sd, "melgan_discriminator.discriminator", p["melgan"])
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def _put_melgan(sd: Dict[str, np.ndarray], prefix: str, node: Mapping[str, Any]) -> None:
+    """One flax ``DiscriminatorMelGAN``: conv_0 sits at index 1 of its
+    ``Sequential(pad, conv, leaky)``, conv_1 ... conv_5 at index 0, and the
+    certainty conv (conv_6) stands alone."""
+    _put_wn(sd, f"{prefix}.0.1", node["conv_0"])
     for i in range(1, 6):
-        _put_wn(sd, f"melgan_discriminator.discriminator.{i}.0", node[f"conv_{i}"])
-    _put_wn(sd, "melgan_discriminator.discriminator.6", node["conv_6"])
+        _put_wn(sd, f"{prefix}.{i}.0", node[f"conv_{i}"])
+    _put_wn(sd, f"{prefix}.6", node["conv_6"])
+
+
+def melgan_multiscales_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``MelganMultiScalesDiscriminator`` params (with or without the
+    outer ``"params"`` key): ``disc_{s}.conv_{i}`` -> state dict keys
+    ``discriminators.{s}.discriminator.…`` of
+    ``vibravox_tpu_torch.models.melgan_discriminator.MelganMultiScalesDiscriminator``."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    scales = sorted(int(k.split("_")[1]) for k in p if k.startswith("disc_"))
+    if scales != list(range(len(scales))):
+        raise ValueError(f"discriminator scales {scales} are not 0 .. {len(scales) - 1}")
+    for s in scales:
+        _put_melgan(sd, f"discriminators.{s}.discriminator", p[f"disc_{s}"])
     return {k: torch.tensor(v) for k, v in sd.items()}
 
 

@@ -6,6 +6,9 @@ plus one full-rate MelGAN discriminator on the audio; every layer's
 activation is returned for feature matching.  Module names follow the
 reference torch state dict.  ``embed`` works on NCW tensors (the train step
 calls it); ``forward`` keeps the JAX package's channels-last layout.
+``VIBRAVOX_INT8_DISC=1`` when the module is made runs each band
+discriminator's conv_1 ... conv_6 and the MelGAN's conv_1 ... conv_5 in int8
+(``ops/quant.py``), as the JAX package's switch does.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from torch import nn
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.layers import WNConv1d
-from vibravox_tpu_torch.models.melgan_discriminator import DiscriminatorMelGAN
+from vibravox_tpu_torch.models.melgan_discriminator import DiscriminatorMelGAN, int8_disc_enabled
 
 __all__ = ["DiscriminatorEBEN", "DiscriminatorEBENMultiScales"]
 
@@ -34,6 +37,7 @@ class DiscriminatorEBEN(nn.Module):
         if min_channels % q != 0:
             raise ValueError("min_channels must be a multiple of q")
         c, d = int(min_channels), int(dilation)
+        int8 = int8_disc_enabled()  # the middle stages; the small first and last stay float
         widths = [c, 2 * c, 4 * c, 8 * c, 16 * c, 32 * c, 32 * c]
         stages = [nn.Sequential(
             nn.ReflectionPad1d(1),
@@ -42,11 +46,11 @@ class DiscriminatorEBEN(nn.Module):
         )]
         for i in range(1, 6):
             stages.append(nn.Sequential(
-                WNConv1d(widths[i - 1], widths[i], 7, stride=2, padding=3, dilation=d, groups=q),
+                WNConv1d(widths[i - 1], widths[i], 7, stride=2, padding=3, dilation=d, groups=q, int8=int8),
                 nn.LeakyReLU(_SLOPE),
             ))
         stages.append(nn.Sequential(
-            WNConv1d(widths[5], widths[6], 5, padding=2, dilation=d, groups=q), nn.LeakyReLU(_SLOPE),
+            WNConv1d(widths[5], widths[6], 5, padding=2, dilation=d, groups=q, int8=int8), nn.LeakyReLU(_SLOPE),
         ))
         stages.append(WNConv1d(widths[6], 1, 3, padding=1))
         self.discriminator = nn.ModuleList(stages)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -30,9 +30,12 @@ __all__ = [
     "eben_generator_from_state_dict",
     "eben_discriminator_from_pretrained",
     "save_eben_generator",
+    "save_eben_discriminator",
     "push_eben_generator_to_hub",
+    "push_folder_to_hub",
     "load_state_dict",
     "infer_eben_hparams",
+    "infer_eben_discriminator_hparams",
 ]
 
 _WEIGHT_CANDIDATES = ("model.safetensors", "pytorch_model.bin", "model.pt")
@@ -92,10 +95,31 @@ def eben_generator_from_pretrained(path: PathLike, device: DeviceLike = None) ->
     return eben_generator_from_state_dict(load_state_dict(_resolve_weights(path)), device)
 
 
+def infer_eben_discriminator_hparams(sd: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """(q, min_channels) of a ``DiscriminatorEBENMultiScales`` state dict:
+    stage 0 of a band discriminator maps q bands to min_channels, stage 1
+    reads min_channels / q channels a group."""
+    stage = "pqmf_discriminators.0.discriminator.{}.parametrizations.weight.original1"
+    c = int(sd[stage.format("0.1")].shape[0])
+    return {"q": c // int(sd[stage.format("1.0")].shape[1]), "min_channels": c}
+
+
 def eben_discriminator_from_pretrained(path: PathLike, q: int = 4, min_channels: int = 24,
                                        device: DeviceLike = None) -> DiscriminatorEBENMultiScales:
     sd = load_state_dict(_resolve_weights(path))
     return _loaded(lambda: DiscriminatorEBENMultiScales(q=q, min_channels=min_channels, device="cpu"), sd, device)
+
+
+def save_eben_discriminator(sd: Dict[str, torch.Tensor], save_dir: PathLike) -> str:
+    """Writes a ``DiscriminatorEBENMultiScales`` state dict in the layout
+    ``eben_discriminator_from_pretrained`` reads: ``model.safetensors`` and
+    ``config.json`` (q, min_channels).  Returns the weight file's path."""
+    out = Path(save_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    weights = out / "model.safetensors"
+    safetensors_io.save_file(sd, weights)
+    (out / "config.json").write_text(json.dumps(infer_eben_discriminator_hparams(sd)))
+    return str(weights)
 
 
 _MODEL_CARD = """---
@@ -157,3 +181,11 @@ def push_eben_generator_to_hub(model: EBENGenerator, repo_id: str) -> None:
     raise NotImplementedError(
         f"pushing to the hub ({repo_id!r}) needs the network, which the port never uses; write a local "
         "directory with save_eben_generator and upload it yourself")
+
+
+def push_folder_to_hub(folder: Optional[PathLike], repo_id: str) -> None:
+    """Refused: pushing needs the network.  The export scripts write the
+    folder an upload would send."""
+    raise NotImplementedError(
+        f"pushing {str(folder or 'a folder')!r} to the hub ({repo_id!r}) needs the network, which the port "
+        "never uses; write the local directory and upload it yourself")

@@ -25,7 +25,8 @@ import torch
 from torch import nn
 from torch.nn.utils.parametrizations import weight_norm
 
-from vibravox_tpu_torch.ops.conv import conv1d, conv_transpose1d, norm_padding
+from vibravox_tpu_torch.ops.conv import conv1d, conv_transpose1d, norm_padding, reflect_pad
+from vibravox_tpu_torch.ops.quant import conv1d_int8_ste
 
 __all__ = ["TorchConv1d", "WNConv1d", "WNConvTranspose1d", "variance_scaling_"]
 
@@ -68,11 +69,25 @@ class TorchConv1d(nn.Conv1d):
 
 
 class WNConv1d(TorchConv1d):
-    """Weight-normalised ``TorchConv1d`` (gain per output channel)."""
+    """Weight-normalised ``TorchConv1d`` (gain per output channel).
 
-    def __init__(self, *args, **kwargs):
+    ``int8``: the forward convolution runs in int8 with a straight-through
+    backward (``ops/quant.py::conv1d_int8_ste``), the discriminators'
+    ``VIBRAVOX_INT8_DISC`` experiment; the parameters are the same."""
+
+    def __init__(self, *args, int8: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         weight_norm(self, dim=0)
+        self.int8 = bool(int8)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.int8:
+            return super().forward(x)
+        pad = self.pad
+        if self.pad_mode == "reflect":
+            x, pad = reflect_pad(x, pad), (0, 0)
+        y = conv1d_int8_ste(x, self.weight.to(x.dtype), self.stride[0], pad, self.dilation[0], self.groups)
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None]
 
 
 class WNConvTranspose1d(nn.ConvTranspose1d):

@@ -52,6 +52,7 @@ from torch import nn
 from torch.nn.utils.parametrizations import weight_norm
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device
+from vibravox_tpu_torch.models import safetensors_io
 from vibravox_tpu_torch.models.layers import variance_scaling_
 from vibravox_tpu_torch.parallel.mesh import global_rand, global_rows
 from vibravox_tpu_torch.parallel.tp import ModelShard
@@ -459,6 +460,7 @@ def wav2vec2_for_ctc_from_config(
 
 
 _PRETRAINING_PREFIXES = ("quantizer.", "project_q.", "project_hid.")
+_WEIGHT_FILES = ("pytorch_model.bin", "model.safetensors")
 
 
 def _checkpoint_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], List[str]]:
@@ -486,7 +488,8 @@ def wav2vec2_for_ctc_from_pretrained(
 ) -> Wav2Vec2ForCTC:
     """A local directory in HF's layout: ``config.json`` (the fields of
     ``Wav2Vec2Config`` that it has; ``pad_token_id``, ``vocab_size`` and
-    ``config_overrides`` apply over it) and ``pytorch_model.bin``.  The
+    ``config_overrides`` apply over it) and ``pytorch_model.bin`` or, when
+    there is none, ``model.safetensors``.  The
     weights load with ``strict=True`` (a missing or unexpected key raises);
     a pretraining checkpoint's ``quantizer.*``, ``project_q.*`` and
     ``project_hid.*`` are dropped and listed in ``model.load_report``; ``lm_head`` is made fresh when absent
@@ -498,9 +501,9 @@ def wav2vec2_for_ctc_from_pretrained(
         raise FileNotFoundError(
             f"{pretrained_model_name_or_path!r} is not a local directory: the port loads a pretrained "
             "wav2vec2 from a directory holding config.json and pytorch_model.bin and never downloads")
-    missing = [n for n in ("config.json", "pytorch_model.bin") if not (directory / n).is_file()]
-    if missing:
-        raise FileNotFoundError(f"{directory} lacks {', '.join(missing)}")
+    weights = next((directory / n for n in _WEIGHT_FILES if (directory / n).is_file()), None)
+    if not (directory / "config.json").is_file() or weights is None:
+        raise FileNotFoundError(f"{directory} lacks config.json or a weight file ({', '.join(_WEIGHT_FILES)})")
     dev = resolve_device(device)
     hf = json.loads((directory / "config.json").read_text())
     fields = {f.name for f in dataclasses.fields(Wav2Vec2Config)}
@@ -511,7 +514,8 @@ def wav2vec2_for_ctc_from_pretrained(
     kwargs.update(pad_token_id=pad_token_id, vocab_size=vocab_size, **config_overrides)
     model = Wav2Vec2ForCTC(Wav2Vec2Config(**kwargs))
 
-    raw = torch.load(directory / "pytorch_model.bin", map_location="cpu", weights_only=True)
+    raw = (safetensors_io.load_file(weights) if weights.suffix == ".safetensors"
+           else torch.load(weights, map_location="cpu", weights_only=True))
     sd, dropped = _checkpoint_state_dict(raw)
     own = model.state_dict()
     gen = torch.Generator().manual_seed(int(seed))
@@ -535,9 +539,11 @@ def wav2vec2_for_ctc_from_pretrained(
     return model.to(dev)
 
 
-def save_pretrained(model: Wav2Vec2ForCTC, directory: str, with_lm_head: bool = True) -> None:
-    """Writes ``config.json`` (HF's field names) and ``pytorch_model.bin``,
-    the layout ``wav2vec2_for_ctc_from_pretrained`` reads."""
+def save_pretrained(model: Wav2Vec2ForCTC, directory: str, with_lm_head: bool = True,
+                    safetensors: bool = False) -> None:
+    """Writes ``config.json`` (HF's field names) and ``pytorch_model.bin``
+    (``model.safetensors`` with ``safetensors``), the layout
+    ``wav2vec2_for_ctc_from_pretrained`` reads."""
     path = Path(directory)
     path.mkdir(parents=True, exist_ok=True)
     cfg = {k: (list(v) if isinstance(v, tuple) else v) for k, v in dataclasses.asdict(model.config).items()
@@ -546,6 +552,10 @@ def save_pretrained(model: Wav2Vec2ForCTC, directory: str, with_lm_head: bool = 
     (path / "config.json").write_text(json.dumps(cfg, indent=1))
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
           if with_lm_head or not k.startswith("lm_head.")}
-    tmp = path / ".pytorch_model.bin.tmp"
-    torch.save(sd, tmp)
-    os.replace(tmp, path / "pytorch_model.bin")
+    name = "model.safetensors" if safetensors else "pytorch_model.bin"
+    tmp = path / f".{name}.tmp"
+    if safetensors:
+        safetensors_io.save_file(sd, tmp)
+    else:
+        torch.save(sd, tmp)
+    os.replace(tmp, path / name)

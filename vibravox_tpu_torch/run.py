@@ -58,6 +58,15 @@ def setup_environment() -> None:
     os.environ.setdefault("HF_DATASETS_OFFLINE", "1")
 
 
+def port_target(target: str) -> str:
+    """The port's name for a config ``_target_``: ``vibravox_tpu.X`` becomes
+    ``vibravox_tpu_torch.X``, a target of ``_FOREIGN_TARGETS`` the port's
+    counterpart, and any other is kept."""
+    if target.startswith(_JAX_PREFIX):
+        return _PORT_PREFIX + target[len(_JAX_PREFIX):]
+    return _FOREIGN_TARGETS.get(target, target)
+
+
 def port_targets(node: Any, device: str) -> None:
     """In place: ``vibravox_tpu.X`` targets become ``vibravox_tpu_torch.X``
     (and those of ``_FOREIGN_TARGETS`` the port's counterparts), and each
@@ -69,10 +78,7 @@ def port_targets(node: Any, device: str) -> None:
     if isinstance(node, dict):
         target = node.get("_target_")
         if isinstance(target, str):
-            if target.startswith(_JAX_PREFIX):
-                target = node["_target_"] = _PORT_PREFIX + target[len(_JAX_PREFIX):]
-            elif target in _FOREIGN_TARGETS:
-                target = node["_target_"] = _FOREIGN_TARGETS[target]
+            target = node["_target_"] = port_target(target)
             if target.startswith(_PORT_PREFIX) and "device" not in node:
                 try:
                     takes_device = "device" in inspect.signature(_locate(target)).parameters
