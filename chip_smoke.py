@@ -309,6 +309,11 @@ from vibravox_tpu_torch.tasks.wav2vec2_stp import Wav2Vec2STPTask
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_PEAK_FLOPS = 495e12
+# K1 and K2 run their float32 products in 3xTF32, three TF32 products each:
+# their float32 bound is the work at 495 / 3 TFLOP/s (the 67 TFLOP/s FMA
+# figure stands beside it as fma_ops_ms)
+STACK_PEAK_FLOPS = {torch.float32: TF32_PEAK_FLOPS / 3, torch.bfloat16: PEAK_FLOPS[torch.bfloat16]}
 HBM_BYTES_PER_S = 3.35e12
 
 BATCH = 8  # serving max_batch
@@ -316,8 +321,8 @@ BATCH = 8  # serving max_batch
 SERVING_SHAPES = (("enc_0,dec_2", 32, 3968), ("enc_1,dec_1", 64, 1984), ("enc_2,dec_0", 128, 496))
 EXTRA_SHAPES = ((3, 64, 1001), (2, 32, 40), (2, 128, 40))  # (B, C, T)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# K1's CUDA kernels: f32, bf16, and the bf16 path's weight relayout
-K1_KERNELS = ("residual_stack_kernel", "residual_stack_mma_kernel", "relayout_weights_kernel")
+# K1's CUDA kernels: the tensor-core kernel (f32 and bf16) and its weight relayout
+K1_KERNELS = ("residual_stack_mma_kernel", "relayout_weights_kernel")
 # K2's: the unit forward and backward kernels of both types (f32
 # unit_*_kernel, bf16 unit_*_mma_kernel), the dW reduction and the bf16
 # path's weight layout
@@ -497,10 +502,17 @@ def spread(ms: list, warmup: int, audio_s: float, flops: float, dtype=torch.bflo
 
 def stack_bound_ms(b: int, c: int, t: int, dtype: torch.dtype):
     """(operations ms, bytes ms) of one stack: 24 C^2 T B FLOP at the type's
-    peak; x read and y written once plus the six weight tensors read once."""
+    tensor-core rate (STACK_PEAK_FLOPS); x read and y written once plus the
+    six weight tensors read once."""
     flops = 24 * c * c * t * b
     nbytes = (2 * b * c * t + 12 * c * c) * torch.empty((), dtype=dtype).element_size()
-    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return flops / STACK_PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def fma_ms(flops: float) -> float:
+    """ms of ``flops`` at the card's 67 TFLOP/s of float32 FMAs (the rate the
+    float32 stacks ran at before 3xTF32)."""
+    return flops / PEAK_FLOPS[torch.float32] * 1e3
 
 
 def bound(ops_ms: float, bytes_ms: float):
@@ -539,7 +551,24 @@ def sass_counts(lib_path: str) -> dict:
     return counts
 
 
-def check_tensor_cores(source: str, counts: dict, bf16_kernel: str, f32_kernel: str, ops) -> None:
+def check_tensor_cores(source: str, counts: dict, mma_kernel: str, fma_kernel: str, ops) -> None:
+    """Raises unless the kernels whose names hold ``mma_kernel`` come in
+    both types (a kernel is bf16 if its mangled name has the type, f32
+    otherwise) and each has every one of ``ops`` in its SASS, and no
+    kernel's name holds ``fma_kernel`` (the FMA kernels the tensor-core ones
+    replaced)."""
+    mma = {k: v for k, v in counts.items() if mma_kernel in k}
+    if not any("__nv_bfloat16" in k for k in mma) or all("__nv_bfloat16" in k for k in mma):
+        raise AssertionError(f"{source}: its bf16 or f32 {mma_kernel} is not in its SASS: {sorted(counts)}")
+    for k, v in mma.items():
+        if not all(v[op] for op in ops):
+            raise AssertionError(f"{source}: a tensor-core kernel lacks {ops}: {k} {v}")
+    fma = [k for k in counts if fma_kernel in k]
+    if fma:
+        raise AssertionError(f"{source}: an FMA kernel is still built: {fma}")
+
+
+def check_bf16_tensor_cores(source: str, counts: dict, bf16_kernel: str, f32_kernel: str, ops) -> None:
     """Raises unless every bf16 kernel whose name holds ``bf16_kernel`` has
     each of ``ops`` in its SASS and no f32 kernel whose name holds
     ``f32_kernel`` has HMMA (a kernel is bf16 if its mangled name has the
@@ -558,9 +587,10 @@ def check_tensor_cores(source: str, counts: dict, bf16_kernel: str, f32_kernel: 
 
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together; the HMMA
-    and LDSM counts of each kernel.  K1's bf16 kernel and K2's bf16 unit
-    kernels must run on the tensor cores from ldmatrix fragments, and their
-    f32 ones must not use the tensor cores."""
+    and LDSM counts of each kernel.  K1's kernel must run on the tensor
+    cores from ldmatrix fragments in both types (float32 in 3xTF32), and
+    its FMA kernel may not be left; K2's bf16 unit kernels must run on the
+    tensor cores, and its f32 ones (FMAs) must not."""
     t0 = time.perf_counter()
     infos = _build.build_all(_build.SOURCES)
     wall = time.perf_counter() - t0
@@ -575,7 +605,7 @@ def phase_build() -> None:
                                ("HMMA", "LDSM"))
         elif name == "fused_residual_bwd":
             for unit in ("unit_forward", "unit_backward"):
-                check_tensor_cores(name, counts, f"{unit}_mma_kernel", f"{unit}_kernel", ("HMMA", "LDSM"))
+                check_bf16_tensor_cores(name, counts, f"{unit}_mma_kernel", f"{unit}_kernel", ("HMMA", "LDSM"))
 
 
 def k1_config(b: int, c: int, t: int, dtype: torch.dtype) -> dict:
@@ -616,7 +646,7 @@ def phase_k1_parity() -> list:
                     bound_ms, bound_by = bound(ops_ms, bytes_ms)
                     row.update(kernel_ms=float(np.median(k_ms)), plain_ms=float(np.median(p_ms)),
                                ops_ms=ops_ms, bytes_ms=bytes_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
+                               bound_by=bound_by, fma_ops_ms=fma_ms(24 * c * c * t * b))
                 rows.append(row)
                 emit({"phase": "k1_parity", **row})
     return rows
@@ -704,9 +734,10 @@ def phase_profile() -> None:
     with torch.inference_mode():
         for _ in range(3):
             model(x)
-        # float32 K1 is one launch a call, six calls a forward
+        # K1 is two launches a call (the weight relayout, the stack), six
+        # calls a forward
         prof = device_profile(lambda: model(x), n_fwd, "the serving forwards", lambda events: sum(
-            any(k in e.name for k in K1_KERNELS) for e in events) == 6 * n_fwd)
+            any(k in e.name for k in K1_KERNELS) for e in events) == 12 * n_fwd)
     emit({"phase": "profile", "B": BATCH, "T": int(x.shape[1]), "dtype": "float32", "per": "forward", **prof})
 
 
@@ -736,11 +767,12 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 def k2_bound_ms(b: int, c: int, t: int, dtype: torch.dtype):
     """(operations ms, bytes ms) of one stack backward: 72 C^2 T B FLOP (the
-    recompute of the forward 24, dx 24, dW 24) at the type's peak; x and g
-    read, dx written, the weights read and the float32 dW written once."""
+    recompute of the forward 24, dx 24, dW 24) at the type's tensor-core
+    rate (STACK_PEAK_FLOPS); x and g read, dx written, the weights read and
+    the float32 dW written once."""
     elt = torch.empty((), dtype=dtype).element_size()
     nbytes = 3 * b * c * t * elt + 12 * c * c * (elt + 4)
-    return 72 * c * c * t * b / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return 72 * c * c * t * b / STACK_PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 # K2's CUDA launches in the order of one call: in bf16 the weight layout
@@ -840,9 +872,9 @@ def phase_k2_parity() -> list:
                     ops1, bytes1 = stack_bound_ms(b, c, t, dtype)
                     passes = k2_passes_us(x, ks, g)
                     row.update(kernel_ms=float(np.median(k2)), plain_ms=float(np.median(p2)),
-                               ops_ms=ops_ms, bytes_ms=bytes_ms,
+                               ops_ms=ops_ms, bytes_ms=bytes_ms, fma_ops_ms=fma_ms(72 * c * c * t * b),
                                k1_kernel_ms=float(np.median(k1)), k1_plain_ms=float(np.median(p1)),
-                               k1_ops_ms=ops1, k1_bytes_ms=bytes1,
+                               k1_ops_ms=ops1, k1_bytes_ms=bytes1, k1_fma_ops_ms=fma_ms(24 * c * c * t * b),
                                k2_passes_us=passes, k2_passes_sum_us=sum(passes.values()))
                 rows.append(row)
                 emit({"phase": "k2_parity", **row})
@@ -1135,8 +1167,8 @@ def phase_train_profile() -> dict:
 # ---------------------------------------------------------------------------
 
 # a whole 5.7 s synthetic test utterance, an extra shape beside the CLI's
-# test batch: its residual stacks run at T = 22848 / 11424 / 2856, no
-# multiple of a K1 tile (f32 128 / 64 / 32)
+# test batch: its residual stacks run at T = 22848 / 11424 / 2856 (K1's
+# f32 second tiles, 72 / 40 / 16, leave 24 / 24 / 8 rows in the last tile)
 EVAL_UTTERANCE = 6
 # the published default logging (tensorboard): phase cli reads its event files back
 CLI_ARGS = ("lightning_datamodule=bwe", "lightning_module=eben", "callbacks=bwe_checkpoint",
@@ -1236,7 +1268,8 @@ def eval_k1_row(b: int, c: int, t: int, seed: int, label: str) -> dict:
     row = {"batch": label, "B": b, "C": c, "T": t, "dtype": "float32", "max_abs_err": err, "scale": sc,
            "tol": TOL[torch.float32] * sc, "t_mod_tile": t % config["tile"], "config": config,
            "kernel_ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms)),
-           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "fma_ops_ms": fma_ms(24 * c * c * t * b)}
     emit({"phase": "eval_k1", **row})
     if not (math.isfinite(err) and err <= TOL[torch.float32] * sc):
         raise AssertionError(f"K1 disagrees with its plain version at an eval shape: {row}")
@@ -4181,7 +4214,8 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
 
     def k1_eval(rows, what):
         # each stack shape runs twice in a generator forward
-        out = summed(rows, (("kernel_ms", "kernel_ms"), ("plain_ms", "plain_ms")), "ops_ms", "bytes_ms", 2)
+        out = summed(rows, (("kernel_ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                            ("fma_ops_ms", "fma_ops_ms")), "ops_ms", "bytes_ms", 2)
         out.update(per=what, shapes=[{k: r[k] for k in ("B", "C", "T", "t_mod_tile")} for r in rows])
         return out
 
@@ -4202,6 +4236,10 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
           for dt in ("bfloat16", "float32")}
     k2 = {dt: _per_step(k2_rows, dt, "kernel_ms", "plain_ms", "ops_ms", "bytes_ms")
           for dt in ("bfloat16", "float32")}
+    # float32's bound is at 3xTF32; the same work at 67 TFLOP/s of FMAs beside it
+    for out, rows, key in ((k1_serve, k1_rows, "fma_ops_ms"), (k1, k2_rows, "k1_fma_ops_ms"),
+                           (k2, k2_rows, "fma_ops_ms")):
+        out["float32"]["fma_ops_ms"] = 2 * sum(r[key] for r in rows if key in r and r["dtype"] == "float32")
 
     def dft(prefix, signals):
         out = summed(dft_rows, tuple((k, f"{prefix}_{src}") for k, src in

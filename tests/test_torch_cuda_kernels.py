@@ -73,7 +73,14 @@ def _stack_inputs(b, c, t, dtype, device, seed=0):
      # one sample either side of a whole number of the bf16 kernel's tiles
      # (232 at C = 32 and 64, 104 at C = 128), and a training shape
      (2, 32, 463), (2, 32, 465), (2, 64, 231), (2, 64, 233), (2, 128, 207), (2, 128, 209),
-     (32, 128, 1248)],
+     (32, 128, 1248),
+     # the batch-1 eval shapes (the float32 kernel's second, smaller tile)
+     # and the whole 5.7 s utterance's, and ragged tails of the float32
+     # tiles: one sample over whole tiles of the first (232 / 104 / 96 at C
+     # = 32 / 64 / 128, B large enough to take it) and of the second (72 /
+     # 40 / 16)
+     (1, 32, 9984), (1, 64, 4992), (1, 128, 1248), (1, 32, 22848), (1, 128, 2856),
+     (66, 32, 465), (66, 64, 209), (66, 128, 97), (1, 32, 145), (1, 64, 81), (1, 128, 33)],
 )
 def test_residual_stack_kernel_matches_plain(b, c, t, dtype, tol, cuda):
     x, ks = _stack_inputs(b, c, t, dtype, cuda)
@@ -140,7 +147,10 @@ def _rel_err(out, ref):
     [(2, 32, 700), (2, 64, 1001), (3, 128, 184), (2, 32, 40), (1, 128, 10), (1, 128, 1248),
      # one sample either side of two of the bf16 backward's tiles (224 at
      # C = 32, 128 at C = 64, 64 at C = 128)
-     (2, 32, 447), (2, 32, 449), (2, 64, 255), (2, 64, 257), (2, 128, 127), (2, 128, 129)],
+     (2, 32, 447), (2, 32, 449), (2, 64, 255), (2, 64, 257), (2, 128, 127), (2, 128, 129),
+     # one sample either side of two of the float32 backward's tiles (224 /
+     # 96 / 46; C = 32's above), and the batch-1 eval shapes
+     (2, 64, 191), (2, 64, 193), (2, 128, 91), (2, 128, 93), (1, 32, 9984), (1, 64, 4992)],
 )
 def test_residual_stack_backward_matches_plain(b, c, t, dtype, tol_dx, tol_dw, cuda):
     x, ks = _stack_inputs(b, c, t, dtype, cuda)
@@ -172,6 +182,21 @@ def test_residual_stack_backward_is_deterministic(cuda):
     for p1, p2 in zip(dws1, dws2):
         for a, b in zip(p1, p2):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,c,t", [(32, 32, 9984), (32, 64, 4992), (32, 128, 1248), (1, 128, 1249)])
+def test_residual_stack_backward_f32_is_bit_equal_twice(b, c, t, cuda):
+    """K2 in float32 at the training shapes and a ragged batch-1 row: dx
+    and dW bit-equal over two calls (no atomics; the partials sum in block
+    order)."""
+    x, ks = _stack_inputs(b, c, t, torch.float32, cuda, seed=c)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(c)).to(cuda) * 0.1
+    dx1, dws1 = residual_stack_backward(x, ks, g)
+    dx2, dws2 = residual_stack_backward(x, ks, g)
+    assert torch.equal(dx1, dx2)
+    for p1, p2 in zip(dws1, dws2):
+        for a, b2 in zip(p1, p2):
+            assert torch.equal(a, b2)
 
 
 def test_residual_stack_autograd_runs_k1_and_k2(cuda):

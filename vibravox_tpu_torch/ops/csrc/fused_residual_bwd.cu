@@ -40,8 +40,18 @@
 // the partials are (blocks x 4 C^2) floats.
 //
 // float32 (unit_forward_kernel, unit_backward_kernel): f32 FMAs on C x T
-// planes, weights staged in chunks of kIc channels; its results must hold
-// 1e-4 of scale, which TF32 or bf16 tensor cores cannot.
+// planes, weights staged in chunks of kIc channels, each convolution summed
+// in the order cuDNN's IEEE float32 convolutions sum it (input channel, then
+// tap; K1's FMA loop in that order matched them to the bit, PR 16), so the
+// recomputed h2 agree with the plain chain's in sign.  Its bar (dx 1e-4, dW
+// 2e-4 of scale against autograd of the plain stack) needs that, not only
+// float32 accuracy: dh2 = G * leaky'(h2) jumps by 0.99 G
+// where h2 changes sign, and at the training shapes some h2 lie within
+// float32 rounding of zero, so another rounding of h2 flips their signs.
+// The plain backward with its input channels summed in another order is
+// 1e-2 of scale off itself there (scripts/torch_k2_f32_signs.py); a 3xTF32
+// tensor-core K2, accurate to float32 against float64, missed the bar the
+// same way (PERF.md, PR 17).
 //
 // bfloat16 (unit_forward_mma_kernel, unit_backward_mma_kernel): every product
 // on the tensor cores, mma.sync m16n8k16 with bf16 operands and f32 sums, laid
@@ -106,7 +116,9 @@
 //
 // Bound on this card: 72 C^2 T B FLOP per stack (the recompute of x1, x2
 // and h1, h2: 24; dx: 24; dW: 24) against x and g read and dx written once,
-// so arithmetic bounds it: at 989 TFLOP/s for bf16 and 67 TFLOP/s for f32.
+// so arithmetic bounds it: at 989 TFLOP/s for bf16 and 67 TFLOP/s for the
+// f32 FMAs (165 TFLOP/s for f32-accurate products in 3xTF32, the bound
+// chip_smoke.py reports).
 // The per-tile partial read-modify-write (4 C^2 floats each way) is the
 // traffic that grows with C: 512 KB a tile at C = 128.
 

@@ -8,10 +8,14 @@ A ResidualUnit is ``x + leaky(pointwise(dilated_k3(x)))`` with reflect
   JAX package's ``_plain_stack``, and autograd differentiates them;
 * a CUDA tensor runs a ``torch.autograd.Function`` whose forward is the
   hand-written kernel ``csrc/fused_residual.cu`` (K1, counterpart of the
-  Pallas ``_fwd_kernel``: f32 FMAs for float32, bf16 tensor cores for
-  bfloat16) and whose backward is ``csrc/fused_residual_bwd.cu``
+  Pallas ``_fwd_kernel``) and whose backward is ``csrc/fused_residual_bwd.cu``
   (K2, counterpart of ``_bwd_kernel``), or raises.  Neither falls back to
-  the plain version.
+  the plain version.  K1 runs its products on the tensor cores: bf16
+  operands for bfloat16, and for float32 three TF32 products of a hi/lo
+  split of each operand (3xTF32), which holds float32's accuracy.  K2 runs
+  bfloat16 on the tensor cores and float32 as FMAs in the plain
+  convolutions' order, which its float32 bar needs (see
+  ``csrc/fused_residual_bwd.cu``).
 
 ``residual_stack_backward`` is K2's wrapper and ``plain_residual_stack_backward``
 its plain version (autograd of the plain stack).  K2 returns dx in x's dtype
@@ -178,9 +182,9 @@ def residual_stack_config(b: int, c: int, t: int, dtype: torch.dtype, device: in
 def _launch_forward(x: torch.Tensor, flat, slope: float) -> torch.Tensor:
     b, c, t = x.shape
     y = torch.empty_like(x)
-    # bf16 scratch: the six weights laid out per (unit, tap) for the kernel's
-    # 16-byte copies; float32 takes none
-    wt = torch.empty(12 * c * c if x.dtype == torch.bfloat16 else 0, device=x.device, dtype=x.dtype)
+    # scratch: the six weights laid out per (unit, tap) for the kernel's
+    # 16-byte copies
+    wt = torch.empty(12 * c * c, device=x.device, dtype=x.dtype)
     lib = _library()
     err = lib.vx_residual_stack(
         x.data_ptr(), y.data_ptr(), *[w.data_ptr() for w in flat], wt.data_ptr(),
