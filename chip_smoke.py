@@ -8,9 +8,12 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: every kernel source (K1; K2; K3 and K4), one nvcc each, all
    started together, with the nvcc time, the ptxas resource report and the
-   HMMA (tensor-core) and LDSM (ldmatrix) instruction counts of each
-   kernel; K1's and K2's bf16 kernels (K2: unit_forward and unit_backward)
-   must have HMMA and LDSM and their f32 ones no HMMA;
+   HMMA (tensor-core), LDSM (ldmatrix) and FFMA instruction counts of each
+   kernel; K1's kernel must have HMMA and LDSM in both types; K2's bf16
+   unit kernels must have HMMA and LDSM, its float32 product kernels
+   (unit_backward_tf32) HMMA, its float32 recompute kernels
+   (unit_forward_fma) FFMA and no HMMA, and the float32 FMA kernels they
+   replaced (unit_forward_kernel, unit_backward_kernel) may not be left;
 3. k1_parity: the fused residual stack (K1) against its plain PyTorch version
    at the serving shapes in float32 (atol 2e-5 of scale, TF32 off for the
    plain convolutions) and bfloat16 (2e-2 of scale), plus ragged T = 1001 and
@@ -31,8 +34,10 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
    plain stack at the training shapes (B = 32) and T = 1001, 40, float32
    and bfloat16, dW bit-equal over two runs; K1 against its plain version
    at the same shapes; K1 and K2 times, K2's device time by pass from a
-   CUDA-only trace of one call, and K1's and K2's launch configurations
-   (tile, grid, blocks per SM, registers, spill bytes);
+   CUDA-only trace of one call (in float32 each unit_backward pass also
+   split into its recompute, timed alone, and its products), and K1's and
+   K2's launch configurations (tile, grid, blocks per SM, registers, spill
+   bytes);
 8. k3_k4_parity: the framed-DFT magnitude (K3) and its backward (K4)
    against ``torch.stft`` and its autograd at B = 32, T = 39904, the three
    loss resolutions, and at a ragged T, B = 1, T just above fft / 2, hops
@@ -288,6 +293,7 @@ from vibravox_tpu_torch.ops.fused_residual import (
     residual_stack,
     residual_stack_backward,
     residual_stack_backward_config,
+    residual_stack_backward_recompute,
     residual_stack_config,
 )
 from vibravox_tpu_torch.ops.pallas_stft import (
@@ -324,9 +330,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # K1's CUDA kernels: the tensor-core kernel (f32 and bf16) and its weight relayout
 K1_KERNELS = ("residual_stack_mma_kernel", "relayout_weights_kernel")
 # K2's: the unit forward and backward kernels of both types (f32
-# unit_*_kernel, bf16 unit_*_mma_kernel), the dW reduction and the bf16
-# path's weight layout
-K2_KERNELS = ("unit_forward", "unit_backward", "reduce_partials_kernel", "layout_unit_weights_kernel")
+# unit_forward_fma_kernel and unit_backward_tf32_kernel, bf16
+# unit_*_mma_kernel), the dW reduction and each type's weight layout
+K2_KERNELS = ("unit_forward", "unit_backward", "reduce_partials_kernel", "layout_unit_weights")
 N_REQUESTS = 64
 
 
@@ -532,9 +538,9 @@ def phase_device() -> str:
 
 
 def sass_counts(lib_path: str) -> dict:
-    """Tensor-core (HMMA) and ldmatrix (LDSM) instructions per kernel in a
-    built library's SASS, from ``cuobjdump -sass``; keys are the mangled
-    kernel names."""
+    """Tensor-core (HMMA), ldmatrix (LDSM) and float32 FMA (FFMA)
+    instructions per kernel in a built library's SASS, from ``cuobjdump
+    -sass``; keys are the mangled kernel names."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -543,9 +549,9 @@ def sass_counts(lib_path: str) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"HMMA": 0, "LDSM": 0}
+            counts[name] = {"HMMA": 0, "LDSM": 0, "FFMA": 0}
         elif name is not None:
-            for op in ("HMMA", "LDSM"):
+            for op in ("HMMA", "LDSM", "FFMA"):
                 if op in line:
                     counts[name][op] += 1
     return counts
@@ -568,29 +574,46 @@ def check_tensor_cores(source: str, counts: dict, mma_kernel: str, fma_kernel: s
         raise AssertionError(f"{source}: an FMA kernel is still built: {fma}")
 
 
-def check_bf16_tensor_cores(source: str, counts: dict, bf16_kernel: str, f32_kernel: str, ops) -> None:
-    """Raises unless every bf16 kernel whose name holds ``bf16_kernel`` has
-    each of ``ops`` in its SASS and no f32 kernel whose name holds
-    ``f32_kernel`` has HMMA (a kernel is bf16 if its mangled name has the
-    type)."""
-    bf16 = {k: v for k, v in counts.items() if bf16_kernel in k and "__nv_bfloat16" in k}
-    f32 = {k: v for k, v in counts.items() if f32_kernel in k and "__nv_bfloat16" not in k}
-    if not bf16 or not f32:
-        raise AssertionError(f"{source}: its bf16 or f32 kernels are not in its SASS: {sorted(counts)}")
+def check_k2_kernels(source: str, counts: dict) -> dict:
+    """Raises unless K2's bf16 unit kernels (``unit_forward_mma_kernel``,
+    ``unit_backward_mma_kernel``) have HMMA and LDSM in their SASS, its
+    float32 product kernels (``unit_backward_tf32_kernel``: dWp, dh1, dWd
+    and dx in 3xTF32, with the recompute of h1 and h2 on FFMAs) have HMMA,
+    and its float32 recompute kernels (``unit_forward_fma_kernel``, and
+    the timing aid ``unit_backward_tf32_kernel<C, D, false>``) have FFMA
+    and no HMMA; and unless none of the float32 FMA kernels they
+    replaced (``unit_forward_kernel``, ``unit_backward_kernel``) is left.  Returns
+    the float32 kernels' counts."""
+    bf16 = {k: v for k, v in counts.items() if "_mma_kernel" in k and "unit_" in k}
+    # unit_backward_tf32_kernel<C, D, kProducts>: kProducts = false (Lb0E)
+    # is the recompute alone, a timing aid
+    products = {k: v for k, v in counts.items() if "unit_backward_tf32_kernel" in k and "Lb1E" in k}
+    recompute = {k: v for k, v in counts.items()
+                 if "unit_forward_fma_kernel" in k or ("unit_backward_tf32_kernel" in k and "Lb0E" in k)}
+    old = [k for k in counts if "unit_forward_kernel" in k or "unit_backward_kernel" in k]
+    if len(bf16) < 2 or not products or not recompute:
+        raise AssertionError(f"{source}: a bf16 or float32 unit kernel is not in its SASS: {sorted(counts)}")
     for k, v in bf16.items():
-        if not all(v[op] for op in ops):
-            raise AssertionError(f"{source}: a bf16 kernel lacks {ops}: {k} {v}")
-    for k, v in f32.items():
-        if v["HMMA"]:
-            raise AssertionError(f"{source}: an f32 kernel has HMMA: {k} {v}")
+        if not (v["HMMA"] and v["LDSM"]):
+            raise AssertionError(f"{source}: a bf16 kernel lacks HMMA or LDSM: {k} {v}")
+    for k, v in products.items():
+        if not v["HMMA"]:
+            raise AssertionError(f"{source}: a float32 product kernel has no HMMA: {k} {v}")
+    for k, v in recompute.items():
+        if v["HMMA"] or not v["FFMA"]:
+            raise AssertionError(f"{source}: a float32 recompute kernel is not on FFMAs: {k} {v}")
+    if old:
+        raise AssertionError(f"{source}: a replaced float32 FMA kernel is still built: {old}")
+    return {**products, **recompute}
 
 
 def phase_build() -> None:
-    """Every kernel source, one nvcc each, all started together; the HMMA
-    and LDSM counts of each kernel.  K1's kernel must run on the tensor
-    cores from ldmatrix fragments in both types (float32 in 3xTF32), and
-    its FMA kernel may not be left; K2's bf16 unit kernels must run on the
-    tensor cores, and its f32 ones (FMAs) must not."""
+    """Every kernel source, one nvcc each, all started together; the HMMA,
+    LDSM and FFMA counts of each kernel.  K1's kernel must run on the
+    tensor cores from ldmatrix fragments in both types (float32 in
+    3xTF32), and its FMA kernel may not be left; K2's kernels as
+    check_k2_kernels holds them, their float32 counts on a line of their
+    own."""
     t0 = time.perf_counter()
     infos = _build.build_all(_build.SOURCES)
     wall = time.perf_counter() - t0
@@ -604,8 +627,7 @@ def phase_build() -> None:
             check_tensor_cores(name, counts, "residual_stack_mma_kernel", "residual_stack_kernel",
                                ("HMMA", "LDSM"))
         elif name == "fused_residual_bwd":
-            for unit in ("unit_forward", "unit_backward"):
-                check_bf16_tensor_cores(name, counts, f"{unit}_mma_kernel", f"{unit}_kernel", ("HMMA", "LDSM"))
+            emit({"phase": "build", "source": name, "float32_kernels": check_k2_kernels(name, counts)})
 
 
 def k1_config(b: int, c: int, t: int, dtype: torch.dtype) -> dict:
@@ -765,6 +787,15 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+def k2_mixed_ms(b: int, c: int, t: int) -> float:
+    """The float32 design's own bound (ms): its recompute, 40 C^2 T B FLOP
+    (x1 and x2, and each unit's h1 and h2 again in its backward), on FMAs
+    at 67 TFLOP/s, plus its gradient products, 48 C^2 T B FLOP, at 3xTF32's
+    165 TFLOP/s."""
+    work = c * c * t * b
+    return (40 * work / PEAK_FLOPS[torch.float32] + 48 * work / STACK_PEAK_FLOPS[torch.float32]) * 1e3
+
+
 def k2_bound_ms(b: int, c: int, t: int, dtype: torch.dtype):
     """(operations ms, bytes ms) of one stack backward: 72 C^2 T B FLOP (the
     recompute of the forward 24, dx 24, dW 24) at the type's tensor-core
@@ -775,8 +806,8 @@ def k2_bound_ms(b: int, c: int, t: int, dtype: torch.dtype):
     return 72 * c * c * t * b / STACK_PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-# K2's CUDA launches in the order of one call: in bf16 the weight layout
-# first; the recompute of x1 and x2, then each unit's backward and its dW
+# K2's CUDA launches in the order of one call: the weight layout first;
+# the recompute of x1 and x2, then each unit's backward and its dW
 # reduction, units at d = 9, 3, 1
 K2_UNIT_PASSES = (("unit_forward d=1", "unit_forward"), ("unit_forward d=3", "unit_forward"),
                   ("unit_backward d=9", "unit_backward"), ("reduce_partials d=9", "reduce_partials_kernel"),
@@ -786,27 +817,44 @@ K2_UNIT_PASSES = (("unit_forward d=1", "unit_forward"), ("unit_forward d=3", "un
 
 def k2_passes(dtype: torch.dtype) -> tuple:
     """(label, kernel name part) of each of K2's launches in one call."""
-    layout = (("layout_unit_weights", "layout_unit_weights_kernel"),) if dtype == torch.bfloat16 else ()
-    return layout + K2_UNIT_PASSES
+    kernel = "layout_unit_weights_kernel" if dtype == torch.bfloat16 else "layout_unit_weights_f32_kernel"
+    return (("layout_unit_weights", kernel),) + K2_UNIT_PASSES
 
 
 def k2_passes_us(x, ks, g) -> dict:
     """K2's device time by pass (µs), from a CUDA-only torch.profiler trace
-    of one call after a warm-up call; the kernels in launch order."""
-    residual_stack_backward(x, ks, g)
-    torch.cuda.synchronize()
+    of one call after a warm-up call; the kernels in launch order.  In
+    float32 each unit_backward pass is also split into its recompute (h1,
+    h2 and dh2 on FMAs: the same pass from a trace of
+    residual_stack_backward_recompute, which stops each tile there) and
+    its products (dWp, dh1, dWd and dx on 3xTF32 tensor cores: the whole
+    pass less its recompute)."""
+
+    def traced(fn, want, what):
+        fn()
+        torch.cuda.synchronize()
+
+        def passes(events):
+            return sorted((e for e in events if any(k in e.name for k in K2_KERNELS)),
+                          key=lambda e: e.time_range.start)
+
+        def whole(events):
+            ev = passes(events)
+            return len(ev) == len(want) and all(k in e.name for (_, k), e in zip(want, ev))
+
+        _, events = cuda_trace(fn, whole, what)
+        return {label: e.time_range.elapsed_us() for (label, _), e in zip(want, passes(events))}
+
     want = k2_passes(x.dtype)
-
-    def passes(events):
-        return sorted((e for e in events if any(k in e.name for k in K2_KERNELS)), key=lambda e: e.time_range.start)
-
-    def whole(events):
-        ev = passes(events)
-        return len(ev) == len(want) and all(k in e.name for (_, k), e in zip(want, ev))
-
-    _, events = cuda_trace(lambda: residual_stack_backward(x, ks, g), whole, "one K2 call")
-    events = passes(events)
-    return {label: e.time_range.elapsed_us() for (label, _), e in zip(want, events)}
+    out = traced(lambda: residual_stack_backward(x, ks, g), want, "one K2 call")
+    if x.dtype == torch.float32:
+        alone = traced(lambda: residual_stack_backward_recompute(x, ks, g),
+                       [p for p in want if "reduce" not in p[1]], "one K2 recompute call")
+        for d in (9, 3, 1):
+            label = f"unit_backward d={d}"
+            out[f"{label} recompute"] = alone[label]
+            out[f"{label} products"] = out[label] - alone[label]
+    return out
 
 
 def phase_k2_parity() -> list:
@@ -873,9 +921,12 @@ def phase_k2_parity() -> list:
                     passes = k2_passes_us(x, ks, g)
                     row.update(kernel_ms=float(np.median(k2)), plain_ms=float(np.median(p2)),
                                ops_ms=ops_ms, bytes_ms=bytes_ms, fma_ops_ms=fma_ms(72 * c * c * t * b),
+                               mixed_ops_ms=k2_mixed_ms(b, c, t) if dtype == torch.float32 else None,
                                k1_kernel_ms=float(np.median(k1)), k1_plain_ms=float(np.median(p1)),
                                k1_ops_ms=ops1, k1_bytes_ms=bytes1, k1_fma_ops_ms=fma_ms(24 * c * c * t * b),
-                               k2_passes_us=passes, k2_passes_sum_us=sum(passes.values()))
+                               k2_passes_us=passes,
+                               k2_passes_sum_us=sum(v for k, v in passes.items()
+                                                    if not k.endswith(("recompute", "products"))))
                 rows.append(row)
                 emit({"phase": "k2_parity", **row})
     return rows
@@ -4240,6 +4291,9 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
     for out, rows, key in ((k1_serve, k1_rows, "fma_ops_ms"), (k1, k2_rows, "k1_fma_ops_ms"),
                            (k2, k2_rows, "fma_ops_ms")):
         out["float32"]["fma_ops_ms"] = 2 * sum(r[key] for r in rows if key in r and r["dtype"] == "float32")
+    # K2 float32's design bound: its recompute on FMAs, its products in 3xTF32
+    k2["float32"]["mixed_ops_ms"] = 2 * sum(r["mixed_ops_ms"] for r in k2_rows
+                                            if "kernel_ms" in r and r["dtype"] == "float32")
 
     def dft(prefix, signals):
         out = summed(dft_rows, tuple((k, f"{prefix}_{src}") for k, src in

@@ -13,8 +13,9 @@ serving shapes, batch 8, and the training shapes, batch 32; float32 at the
 batch-1 eval shapes, and there and at the serving shapes also its device
 time alone, from a trace), K2 (bfloat16 and float32, training shapes; float32
 also its plain version, autograd of the plain stack, with float32
-convolutions in IEEE float32) and K3 and K4 (float32, batch 32, 2.5 s, the
-three loss resolutions).
+convolutions in IEEE float32; and per train step, each training shape
+twice as in the EBEN generator) and K3 and K4 (float32, batch 32, 2.5 s,
+the three loss resolutions).
 """
 
 import json
@@ -77,6 +78,10 @@ def main(label: str) -> None:
         with strict_float32():
             out[f"K2 plain float32 B{cs.TRAIN_B} C{c} T{t}"] = cs.cuda_ms(
                 lambda: plain_residual_stack_backward(x, ks, g), iters=10)
+    # per train step: the generator runs each stack shape twice
+    for what in ("bfloat16", "float32", "plain float32"):
+        out[f"K2 {what} per step"] = 2 * sum(out[f"K2 {what} B{cs.TRAIN_B} C{c} T{t}"]
+                                            for _, c, t in cs.TRAIN_SHAPES)
     x = torch.randn(cs.TRAIN_B, cs.TRAIN_T, device="cuda") * 0.1
     for fft, hop, win in cs.RESOLUTIONS:
         mag = framed_dft_magnitude(x, fft, hop, win)

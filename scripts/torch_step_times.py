@@ -7,14 +7,17 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
 It imports the port and ``chip_smoke`` from the working directory, so the
 same script times another checkout too: unpack a parent commit
 (``git archive``) into a git-ignored directory and run parent, change,
-change, parent on one card.  Prints one JSON line: LABEL, the card, and
-for each regime the median, p10 and p90 ms of ``STEPS`` synchronised
-calls after ``WARMUP``: the full eben.yaml task's bf16 train step at batch
-32 x 2.5 s (``EBENTask.train_step`` alone, no trainer), and the full-width
-ECAPA2's bf16 forward at 32 x 3 s (bench.py's spkv regime).
+change, parent on one card.  Prints one JSON line: LABEL, the card's name
+and power limit, and for each regime the median, p10 and p90 ms of
+``STEPS`` synchronised calls after ``WARMUP``: the full eben.yaml task's
+train step at batch 32 x 2.5 s (``EBENTask.train_step`` alone, no
+trainer) in bfloat16 (eben.yaml's ``compute_dtype``) and in float32 (the
+reference's own precision, which runs K1 and K2 in float32), and the
+full-width ECAPA2's bf16 forward at 32 x 3 s (bench.py's spkv regime).
 """
 
 import json
+import subprocess
 import sys
 
 sys.path.insert(0, ".")
@@ -35,16 +38,19 @@ def summary(ms: list) -> dict:
 def main(label: str) -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_step_times: no CUDA device is available")
-    out = {"label": label, "card": torch.cuda.get_device_name(0)}
-    torch.manual_seed(0)
-    task = cs.make_task("cuda", small=False, optimizer=cs.adam(3e-4, betas=(0.5, 0.9)), compute_dtype="bfloat16")
-    state = task.init_state(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    out = {"label": label, "card": smi}
     rng = np.random.default_rng(8)
     ref = torch.from_numpy(rng.standard_normal((cs.TRAIN_B, cs.TRAIN_T, 1)).astype(np.float32) * 0.1).cuda()
     batch = {"audio_body_conducted": ref * 0.5, "audio_airborne": ref}
-    out["eben_train_step_bf16_b32"] = summary(cs.timed_calls(lambda: task.train_step(state, batch), WARMUP + STEPS))
-    del task, state
-    torch.cuda.empty_cache()
+    for dtype, key in (("bfloat16", "eben_train_step_bf16_b32"), ("float32", "eben_train_step_f32_b32")):
+        torch.manual_seed(0)
+        task = cs.make_task("cuda", small=False, optimizer=cs.adam(3e-4, betas=(0.5, 0.9)), compute_dtype=dtype)
+        state = task.init_state(0)
+        out[key] = summary(cs.timed_calls(lambda: task.train_step(state, batch), WARMUP + STEPS))
+        del task, state
+        torch.cuda.empty_cache()
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((cs.SPKV_B, cs.SPKV_T)).astype(np.float32)).cuda()
     torch.manual_seed(0)
     model = cs.ecapa2_from_config(compute_dtype="bfloat16", device="cuda").eval()

@@ -36,6 +36,7 @@ from vibravox_tpu_torch.ops.fused_residual import (
     plain_residual_stack_backward,
     residual_stack,
     residual_stack_backward,
+    residual_stack_backward_recompute,
 )
 from vibravox_tpu_torch.ops.pallas_stft import (
     framed_dft_backward,
@@ -148,9 +149,14 @@ def _rel_err(out, ref):
      # one sample either side of two of the bf16 backward's tiles (224 at
      # C = 32, 128 at C = 64, 64 at C = 128)
      (2, 32, 447), (2, 32, 449), (2, 64, 255), (2, 64, 257), (2, 128, 127), (2, 128, 129),
-     # one sample either side of two of the float32 backward's tiles (224 /
-     # 96 / 46; C = 32's above), and the batch-1 eval shapes
-     (2, 64, 191), (2, 64, 193), (2, 128, 91), (2, 128, 93), (1, 32, 9984), (1, 64, 4992)],
+     # one sample either side of two of the earlier float32 backward's tiles
+     # (224 / 96 / 46; C = 32's above), and the batch-1 eval shapes
+     (2, 64, 191), (2, 64, 193), (2, 128, 91), (2, 128, 93), (1, 32, 9984), (1, 64, 4992),
+     # chip_smoke.py's K2_EXTRA shapes not above; one sample either side of
+     # two of the float32 backward's tiles (192 / 88 / 88) and of two of its
+     # forward recompute's (256 / 128 / 64; C = 64's above)
+     (3, 64, 1001), (2, 128, 40), (2, 32, 383), (2, 32, 385), (2, 64, 175), (2, 64, 177),
+     (2, 128, 175), (2, 128, 177), (2, 32, 511), (2, 32, 513), (2, 128, 127), (2, 128, 129)],
 )
 def test_residual_stack_backward_matches_plain(b, c, t, dtype, tol_dx, tol_dw, cuda):
     x, ks = _stack_inputs(b, c, t, dtype, cuda)
@@ -197,6 +203,21 @@ def test_residual_stack_backward_f32_is_bit_equal_twice(b, c, t, cuda):
     for p1, p2 in zip(dws1, dws2):
         for a, b2 in zip(p1, p2):
             assert torch.equal(a, b2)
+
+
+def test_residual_stack_backward_recompute_is_a_timing_aid(cuda):
+    """K2 float32's recompute alone runs K2's launches, counts none and
+    leaves the wrapper's results as they were; it refuses bf16."""
+    x, ks = _stack_inputs(2, 64, 1001, torch.float32, cuda)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(8)).to(cuda)
+    dx, dws = residual_stack_backward(x, ks, g)
+    before = residual_stack_backward.launches
+    residual_stack_backward_recompute(x, ks, g)
+    torch.cuda.synchronize()
+    assert residual_stack_backward.launches == before
+    assert torch.equal(residual_stack_backward(x, ks, g)[0], dx)
+    with pytest.raises(ValueError):
+        residual_stack_backward_recompute(x.bfloat16(), tuple((a.bfloat16(), b.bfloat16()) for a, b in ks), g)
 
 
 def test_residual_stack_autograd_runs_k1_and_k2(cuda):

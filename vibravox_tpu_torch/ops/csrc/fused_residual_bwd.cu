@@ -39,19 +39,60 @@
 // once, each looping over tiles (batch row, time tile) in a fixed order, so
 // the partials are (blocks x 4 C^2) floats.
 //
-// float32 (unit_forward_kernel, unit_backward_kernel): f32 FMAs on C x T
-// planes, weights staged in chunks of kIc channels, each convolution summed
-// in the order cuDNN's IEEE float32 convolutions sum it (input channel, then
-// tap; K1's FMA loop in that order matched them to the bit, PR 16), so the
-// recomputed h2 agree with the plain chain's in sign.  Its bar (dx 1e-4, dW
-// 2e-4 of scale against autograd of the plain stack) needs that, not only
-// float32 accuracy: dh2 = G * leaky'(h2) jumps by 0.99 G
-// where h2 changes sign, and at the training shapes some h2 lie within
-// float32 rounding of zero, so another rounding of h2 flips their signs.
-// The plain backward with its input channels summed in another order is
-// 1e-2 of scale off itself there (scripts/torch_k2_f32_signs.py); a 3xTF32
-// tensor-core K2, accurate to float32 against float64, missed the bar the
-// same way (PERF.md, PR 17).
+// float32 (unit_forward_fma_kernel, unit_backward_tf32_kernel): two kinds
+// of work.  K2's float32 bar (dx 1e-4, dW 2e-4 of scale against autograd of
+// the plain stack in IEEE float32) needs the recomputed h2 to agree in sign
+// with the plain chain's: dh2 = G * leaky'(h2) jumps by 0.99 G where h2
+// changes sign, and at the training shapes some h2 lie within float32
+// rounding of zero, so another rounding of h2 flips their signs (the plain
+// backward with its input channels summed in another order is 1e-2 of
+// scale off itself, scripts/torch_k2_f32_signs.py; a K2 with its recompute
+// in 3xTF32 missed the bar so, PERF.md).  Only the masks need that
+// rounding: what follows them is linear in dh2 and dh1.
+//   - The recompute (x1, x2; each unit's h1 and h2 over the tile's window)
+//     runs on FMAs and sums each output over input channel, then tap, one
+//     fmaf a term from 0: the order of cuDNN's IEEE float32 convolutions
+//     (K1's earlier FMA kernel, summing so, matched cuDNN to the bit).
+//     fma_product gives each thread C / 8 output channels of NP
+//     32-column groups (lane l takes column l of each), so a warp's
+//     operands of X are one conflict-free wavefront at any tap shift and
+//     its weights one broadcast float4 each; the weights stream in by
+//     cp.async, KI reduction rows a chunk, through the ring that also
+//     feeds the products.  Each accumulator still sees its terms in the
+//     plain order, and x + leaky(h2) rounds as the plain chain's (no
+//     contraction), so each h2 rounds as the plain chain's and its leaky'
+//     mask takes that sign.
+//   - The gradient products (dWp = dh2 h1^T, dh1 = Wp^T dh2, dWd[., ., k] =
+//     dh1 x_u^T shifted by (k-1) D, dx = Wd^T dh1 shifted by tap) run on
+//     mma.sync m16n8k8 in 3xTF32 (common.cuh: each operand split into TF32
+//     hi and lo, lo.hi + hi.lo + hi.hi into a fresh sum a k8 step, added to
+//     the accumulator in f32, as K1's), each product issued for all of a
+//     warp's tile pairs before the next (tf32_pairs: ptxas otherwise left
+//     dependent mmas a few instructions apart).  The channel products (dh1,
+//     dx) take M from the weights (rows are their output channels, A by
+//     ldmatrix.x4 from chunks [C][KC + 4]) and N from time; the grams
+//     (dWp, dWd) take M and N from channels and reduce over the owned
+//     time rows.
+//   - Planes are channel-major float32: x_u with a 2D halo (reflect-
+//     padded), dh2, and h1 then dh1 over the window.  Channel ch's row
+//     starts at ch S + 4 (bit 2 of ch), S = 8 mod 16, so that the grams'
+//     fragments (8 channels x 4 times) and the channel products' (4
+//     channels x 8 times) are both conflict-free scalar loads at any time
+//     offset, the taps' shifts included.  G stays in global memory, read
+//     by the dh2 and dx epilogues, time along the lanes.
+//   - dW: each block's float32 partial [tap 0-2 | dWp][o][i], written by
+//     one lane a cell a tile, summed by reduce_partials in block order, as
+//     in bf16.  The reflect pad's fold terms of dx ride in dx's product: on
+//     an edge tile, tap 0's B at s in [1, D] is dh1 at s's own column plus
+//     dh1 at the mirrored one (tap 2's likewise at the right edge), added
+//     in f32 before the split, so the pad's transpose stays exact and costs
+//     an edge tile a load and an add a B value (no lane loops over the
+//     channels while its block waits); dx = G + the product.
+//   - Plans (F32Plan<C>): owned rows TILE, the forward's FWD_TILE, the
+//     chunks' KI and KC, MT (how the warps split the channel products),
+//     blocks per SM.
+// tests/test_torch_residual_bwd_tf32.py emulates this walk in float64,
+// the recompute's order and the products' TF32 split included.
 //
 // bfloat16 (unit_forward_mma_kernel, unit_backward_mma_kernel): every product
 // on the tensor cores, mma.sync m16n8k16 with bf16 operands and f32 sums, laid
@@ -116,9 +157,11 @@
 //
 // Bound on this card: 72 C^2 T B FLOP per stack (the recompute of x1, x2
 // and h1, h2: 24; dx: 24; dW: 24) against x and g read and dx written once,
-// so arithmetic bounds it: at 989 TFLOP/s for bf16 and 67 TFLOP/s for the
-// f32 FMAs (165 TFLOP/s for f32-accurate products in 3xTF32, the bound
-// chip_smoke.py reports).
+// so arithmetic bounds it: at 989 TFLOP/s for bf16, and for float32 at
+// 165 TFLOP/s, f32-accurate products in 3xTF32 (chip_smoke.py's bound).
+// The float32 design's own bound is higher: its recompute is 40 C^2 T B
+// FLOP (x1 and x2 once, and h1, h2 again in each unit's backward) on FMAs
+// at 67 TFLOP/s, beside its 48 C^2 T B FLOP of products in 3xTF32.
 // The per-tile partial read-modify-write (4 C^2 floats each way) is the
 // traffic that grows with C: 512 KB a tile at C = 128.
 
@@ -132,11 +175,6 @@
 namespace {
 
 constexpr int kThreads = 256;  // the f32 kernels' and the helper launches' blocks
-constexpr int kMaxD = 9;   // largest dilation: the f32 halos are sized for it
-constexpr int kOcb = 8;    // output channels per thread in the f32 channel products
-constexpr int kPb = 4;     // time positions per thread in the f32 channel products
-constexpr int kIc = 16;    // reduction channels per staged f32 weight chunk
-constexpr int kWsPad = 4;  // keeps float4 alignment, spreads staging stores over banks
 
 // reflect, clamped into range beyond an overhang of t_len (such cells only
 // feed outputs that are never used)
@@ -151,302 +189,652 @@ __host__ __device__ constexpr int blocks_per_sm(size_t smem_bytes) {
 }
 
 // ============================================================================
-// float32: FMAs
+// float32: the recompute on FMAs, the gradient products on 3xTF32 tensor cores
 // ============================================================================
 
-constexpr int weight_stage_floats(int c) { return kIc * 3 * (c + kWsPad); }
-
-// channel_product's default: no position takes a fold term
-struct NoFold {
-  __device__ __forceinline__ bool operator()(int) const { return false; }
-  __device__ __forceinline__ float operator()(int, int, int) const { return 0.f; }
+// Per channel count: TILE (owned time rows of a backward block, whole k8
+// steps), FWD_TILE (time rows of a forward block, whole 32-row columns),
+// KI (reduction rows of a recompute weight chunk), KC (reduction columns
+// of a product weight chunk), MT (m16 tiles a warp of the channel products
+// takes) and the blocks per SM the backward's __launch_bounds__ promises
+// (at most what shared memory allows; the forward promises two where they
+// fit).
+template <int C>
+struct F32Plan;
+template <>
+struct F32Plan<32> {
+  static constexpr int kTile = 192, kFwdTile = 256, kKi = 16, kKc = 32, kMt = 2, kBlocks = 2;
+};
+template <>
+struct F32Plan<64> {
+  static constexpr int kTile = 88, kFwdTile = 128, kKi = 8, kKc = 16, kMt = 2, kBlocks = 2;
+};
+template <>
+struct F32Plan<128> {
+  static constexpr int kTile = 88, kFwdTile = 64, kKi = 8, kKc = 16, kMt = 4, kBlocks = 1;
 };
 
-// the chunk r0 .. r0 + kIc of reduction channels of w into
-// ws[(ii * KT + k) * kWs + output channel]
-template <int C, int KT, bool kTransposed>
-__device__ __forceinline__ void stage_weights(const float* __restrict__ w, float* ws, int r0) {
-  constexpr int kWs = C + kWsPad;
-  constexpr int kElems = C * kIc * KT;
-  for (int e = threadIdx.x; e < kElems; e += kThreads) {
-    size_t src;
-    int dst;
-    if (!kTransposed) {
-      const int o = e / (kIc * KT);
-      const int r = e - o * (kIc * KT);  // r = ii * KT + k
-      src = static_cast<size_t>(o) * C * KT + r0 * KT + r;
-      dst = r * kWs + o;
-    } else {
-      const int r = e / C;  // r = oo * KT + k
-      const int i = e - r * C;
-      const int oo = r / KT;
-      const int k = r - oo * KT;
-      src = static_cast<size_t>(r0 + oo) * C * KT + static_cast<size_t>(i) * KT + k;
-      dst = r * kWs + i;
+constexpr int kWarps = kThreads / 32;
+constexpr int kF32Stages = 2;  // the float32 weight ring: one chunk in flight while one is used
+
+// A float32 plane is channel-major: channel ch's columns (times) start at
+// ch S + 4 (bit 2 of ch), with S = 8 mod 16 and room for the 4.  Eight
+// channels from a multiple of 8 then start in banks {0, 8, 16, 24} and
+// {4, 12, 20, 28} (+ a constant), so both fragment shapes the products
+// load are conflict-free at any column offset: 8 channels x 4 consecutive
+// columns (lanes g, q: the grams, whose K is time) and 4 channels x 8
+// consecutive columns (lanes q, g: the channel products, whose K is the
+// channel); a warp's 32 consecutive columns of one channel (the
+// recompute) are too.
+__host__ __device__ constexpr int plane_stride(int cols) { return (cols + 4 + 7) / 16 * 16 + 8; }
+__device__ __forceinline__ int plane_row(int ch, int stride) { return ch * stride + (ch & 4); }
+
+// floats of one buffer of the weight ring: a recompute chunk [tap][KI][C]
+// or a product chunk [C][KC + 4]
+template <int C>
+__host__ __device__ constexpr int f32_buffer_floats() {
+  return 3 * F32Plan<C>::kKi * C > C * (F32Plan<C>::kKc + 4) ? 3 * F32Plan<C>::kKi * C
+                                                               : C * (F32Plan<C>::kKc + 4);
+}
+
+// A block's planes at dilation D.  Backward: x_u columns are time t0 - 2D
+// + j (TILE + 4D of them), window columns (h1 then dh1, dh2) time t0 - D +
+// j over whole n8 tiles covering TILE + 2D.  Forward: x columns are time
+// t0 - D + j (FWD_TILE + 2D of them), h1 columns time t0 + j.
+template <int C, int D>
+struct F32Geometry {
+  using P = F32Plan<C>;
+  static constexpr int kTile = P::kTile;
+  static constexpr int kWin = kTile + 2 * D;
+  static constexpr int kWinNt = (kWin + 7) / 8;
+  static constexpr int kSx = plane_stride(kTile + 4 * D);
+  static constexpr int kSw = plane_stride(8 * kWinNt);
+  static constexpr size_t kRing = static_cast<size_t>(kF32Stages) * f32_buffer_floats<C>() * sizeof(float);
+  static constexpr size_t kBwdSmem = static_cast<size_t>(C) * (kSx + 2 * kSw) * sizeof(float) + kRing;
+  static constexpr int kFwdSx = plane_stride(P::kFwdTile + 2 * D);
+  static constexpr int kFwdSh = plane_stride(P::kFwdTile);
+  static constexpr size_t kFwdSmem = static_cast<size_t>(C) * (kFwdSx + kFwdSh) * sizeof(float) + kRing;
+  static_assert(kTile % 8 == 0, "the owned rows are whole k8 steps and n8 tiles");
+  static_assert(P::kFwdTile % 32 == 0, "the forward tile is whole 32-row columns");
+};
+
+// the blocks per SM a float32 kernel's __launch_bounds__ promises: at most
+// `most`, and at most what shared memory allows
+__host__ __device__ constexpr int f32_blocks(size_t smem_bytes, int most) {
+  return blocks_per_sm(smem_bytes) < most ? blocks_per_sm(smem_bytes) : most;
+}
+
+// The float32 weights of each unit as four [r][o] slots, r the reduction
+// channel of the recompute and the row of the products' A: slot k < 3 =
+// Wd[o, r, k], slot 3 = Wp[o, r].  wt[unit][slot][r][o] from the six
+// torch-layout weights.
+__global__ void __launch_bounds__(kThreads)
+layout_unit_weights_f32_kernel(const float* __restrict__ wd0, const float* __restrict__ wp0,
+                               const float* __restrict__ wd1, const float* __restrict__ wp1,
+                               const float* __restrict__ wd2, const float* __restrict__ wp2,
+                               float* __restrict__ wt, int c) {
+  const int cc = c * c;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= 12 * cc) return;
+  const int u = e / (4 * cc);
+  const int rem = e - u * 4 * cc;
+  const int slot = rem / cc;
+  const int r = (rem - slot * cc) / c;
+  const int o = rem - slot * cc - r * c;
+  const float* wd = u == 0 ? wd0 : u == 1 ? wd1 : wd2;
+  const float* wp = u == 0 ? wp0 : u == 1 ? wp1 : wp2;
+  wt[e] = slot < 3 ? wd[(o * c + r) * 3 + slot] : wp[o * c + r];
+}
+
+// A tile's weight chunks in the order its products take them: the
+// recompute's h1 (slots 0-2, KI rows a chunk, as [tap][KI][C]) and h2 (slot
+// 3, [KI][C]); in the backward then dh1's A (slot 3, KC columns a chunk, as
+// [C][KC + 4]) and dx's (for each KC block of columns, taps 0-2).  A block
+// takes chunk m of its sequence over its tiles from buffer m % kStages of
+// its ring, with kStages - 1 chunks in flight and one barrier a chunk, as
+// the bf16 WeightStream.
+template <int C, bool kBackward>
+struct F32Stream {
+  using P = F32Plan<C>;
+  static constexpr int kKi = P::kKi, kKc = P::kKc, kStages = kF32Stages;
+  static constexpr int kRowChunks = C / kKi, kColChunks = C / kKc;
+  static constexpr int kChunks = 2 * kRowChunks + (kBackward ? 4 * kColChunks : 0);
+  static constexpr int kBuf = f32_buffer_floats<C>();
+  static_assert(kStages >= 2, "the ring needs a buffer to fill while one is used");
+  static_assert(C % kKi == 0 && C % kKc == 0 && kKc % 8 == 0, "the chunks must divide C");
+
+  static __device__ __forceinline__ void issue(const float* __restrict__ wt, float* ring, int m, int m_end) {
+    if (m < m_end) {
+      const int n = m % kChunks;
+      float* buf = ring + (m % kStages) * kBuf;
+      if (n < 2 * kRowChunks) {
+        const bool point = n >= kRowChunks;
+        const int r0 = (point ? n - kRowChunks : n) * kKi;
+        constexpr int kPieces = kKi * C / 4;  // 16-byte pieces of one slot's KI rows
+        for (int e = threadIdx.x; e < (point ? 1 : 3) * kPieces; e += kThreads) {
+          const int k = e / kPieces;
+          const int p = e - k * kPieces;
+          cp_async16(buf + k * kKi * C + 4 * p, wt + (static_cast<size_t>(point ? 3 : k) * C + r0) * C + 4 * p);
+        }
+      } else {
+        int blk = n - 2 * kRowChunks, slot = 3;
+        if (blk >= kColChunks) {
+          blk -= kColChunks;
+          slot = blk % 3;
+          blk /= 3;
+        }
+        constexpr int kPieces = kKc / 4;  // 16-byte pieces of a row
+        for (int e = threadIdx.x; e < C * kPieces; e += kThreads) {
+          const int row = e / kPieces;
+          const int p = e - row * kPieces;
+          cp_async16(buf + row * (kKc + 4) + 4 * p,
+                     wt + (static_cast<size_t>(slot) * C + row) * C + blk * kKc + 4 * p);
+        }
+      }
     }
-    ws[dst] = w[src];
+    cp_async_commit();
+  }
+
+  static __device__ __forceinline__ void start(const float* __restrict__ wt, float* ring, int m_end) {
+#pragma unroll
+    for (int m = 0; m < kStages - 1; ++m) issue(wt, ring, m, m_end);
+  }
+
+  static __device__ __forceinline__ const float* acquire(const float* __restrict__ wt, float* ring, int m,
+                                                        int m_end) {
+    cp_async_wait_pending<kStages - 2>();
+    __syncthreads();
+    issue(wt, ring, m + kStages - 1, m_end);
+    return ring + (m % kStages) * kBuf;
+  }
+};
+
+// One recompute product on FMAs over columns [0, n_pos) of the output:
+//     Y[o][p] = sum_r sum_{k < KT} W_k[r][o] X[r][p + k STEP]
+// each Y one chain of fmaf from 0 over r ascending, then k: the order in
+// which the plain convolutions sum (cuDNN's IEEE float32; K1's earlier FMA
+// kernel, summing so, matched cuDNN to the bit), so the recomputed h2 take
+// the plain chain's signs.  Warp w owns the C / 8 output channels from
+// w C / 8 and NP 32-column groups; lane l takes column l of each, so an
+// operand of X is 32 consecutive floats of a plane row for the warp (one
+// wavefront at any offset) and a weight one broadcast.  Columns past
+// n_pos read column n_pos - 1 and are not stored.  Every thread of the
+// block must call it (acquire synchronises).
+template <int C, int KT, int STEP, int NP, typename Acquire, typename Epilogue>
+__device__ __forceinline__ void fma_product(const float* X, int sx, int n_pos, Acquire& acquire,
+                                            Epilogue epilogue) {
+  constexpr int KI = F32Plan<C>::kKi, MO = C / kWarps;
+  static_assert(MO % 4 == 0, "a warp's output channels are whole float4s");
+  const int lane = threadIdx.x & 31;
+  const int o0 = (threadIdx.x >> 5) * MO;
+  int col[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) col[j] = min(32 * j + lane, n_pos - 1);
+  float acc[MO][NP];
+#pragma unroll
+  for (int m = 0; m < MO; ++m)
+#pragma unroll
+    for (int j = 0; j < NP; ++j) acc[m][j] = 0.f;
+#pragma unroll 1
+  for (int r0 = 0; r0 < C; r0 += KI) {
+    const float* w = acquire();  // [KT][KI][C]
+#pragma unroll
+    for (int ii = 0; ii < KI; ++ii) {
+      const float* xr = X + plane_row(r0 + ii, sx);
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        float xv[NP], wv[MO];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) xv[j] = xr[col[j] + k * STEP];
+#pragma unroll
+        for (int m4 = 0; m4 < MO / 4; ++m4) {
+          const float4 v = *reinterpret_cast<const float4*>(w + (k * KI + ii) * C + o0 + 4 * m4);
+          wv[4 * m4] = v.x;
+          wv[4 * m4 + 1] = v.y;
+          wv[4 * m4 + 2] = v.z;
+          wv[4 * m4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int m = 0; m < MO; ++m)
+#pragma unroll
+          for (int j = 0; j < NP; ++j) acc[m][j] = fmaf(wv[m], xv[j], acc[m][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int p = 32 * j + lane;
+    if (p < n_pos) {
+#pragma unroll
+      for (int m = 0; m < MO; ++m) epilogue(o0 + m, p, acc[m][j]);
+    }
   }
 }
 
-// Y[o, p] = sum_r W[r, o] . operand(r, p) for p in [0, n_pos), o in [0, C).
-// Without kTransposed the reduction runs over the weight's input channel
-// (w laid out (o, i, k)); with it, over the weight's output channel, so the
-// product applies W^T.  KT is the tap count (3 dilated, 1 pointwise); n_pos
-// is at most TILE + 2 kMaxD.  operand(ch, k, p) gives the activation;
-// epilogue(o, p, value) consumes the result.  Where touches(p), position p
-// also takes fold(ch, k, p) in its operand (the reflect pad's transpose).
-// FMAs on kOcb x kPb micro-tiles.  Every thread of the block must call it
-// (it synchronises).
-template <int C, int KT, bool kTransposed, typename Operand, typename Epilogue,
-          typename Touches = NoFold, typename Fold = NoFold>
-__device__ __forceinline__ void channel_product(const float* __restrict__ w, float* ws, int n_pos,
-                                                Operand operand, Epilogue epilogue,
-                                                Touches touches = Touches(), Fold fold = Fold()) {
-  constexpr int kWs = C + kWsPad;
-  static_assert(C % kOcb == 0 && C % kIc == 0, "channel count must divide the tiles");
-  constexpr int kGroups = C / kOcb;
-  const int tid = threadIdx.x;
-  const int npg = (n_pos + kPb - 1) / kPb;
-  const int items = kGroups * npg;
-  for (int base = 0; base < items; base += kThreads) {
-    const int item = base + tid;
-    const bool active = item < items;
-    const int og = active ? item / npg : 0;
-    const int pg = active ? item - og * npg : 0;
-    const int o0 = og * kOcb;
-    int pos[kPb];
-    bool valid[kPb];
-#pragma unroll
-    for (int q = 0; q < kPb; ++q) {
-      const int p = pg + q * npg;
-      valid[q] = active && p < n_pos;
-      pos[q] = min(p, n_pos - 1);
-    }
-    float acc[kOcb][kPb];
-#pragma unroll
-    for (int a = 0; a < kOcb; ++a)
-#pragma unroll
-      for (int q = 0; q < kPb; ++q) acc[a][q] = 0.f;
+// How the warps share a channel product of NNT n8 tiles: kWm warps along M
+// (kMt m16 tiles each, blocked), kWn along N; a warp takes n-tiles wn, wn +
+// kWn, ... below NNT.
+template <int C, int NNT>
+struct F32Tiles {
+  static constexpr int kMt = F32Plan<C>::kMt;
+  static constexpr int kWm = C / 16 / kMt;
+  static constexpr int kWn = kWarps / kWm;
+  static constexpr int kNt = (NNT + kWn - 1) / kWn;
+  static constexpr bool kExact = NNT % kWn == 0;  // every warp's n-tiles exist
+  static_assert(16 * kMt * kWm == C && kWarps % kWm == 0, "the warps must share the m-tiles evenly");
+};
 
-    for (int r0 = 0; r0 < C; r0 += kIc) {
-      __syncthreads();  // operands ready; previous chunk consumed
-      stage_weights<C, KT, kTransposed>(w, ws, r0);
-      __syncthreads();
-      if (active) {
-#pragma unroll 2
-        for (int ii = 0; ii < kIc; ++ii) {
+// d[i] = A_i . B_i on 3xTF32 for P independent tile pairs of k8 steps,
+// each into a fresh sum: lo.hi, then hi.lo, then hi.hi, each product
+// issued for every pair before the next, so that an mma waits on one of
+// its own sum only P mmas later (ptxas keeps dependent mmas of one pair a
+// few instructions apart otherwise).  The callers add d to their
+// accumulators in f32.
+template <int P>
+__device__ __forceinline__ void tf32_pairs(float (&d)[P][4], const uint32_t (&ah)[P][4], const uint32_t (&al)[P][4],
+                                           const uint32_t (&bh)[P][2], const uint32_t (&bl)[P][2]) {
 #pragma unroll
-          for (int k = 0; k < KT; ++k) {
-            float xv[kPb];
+  for (int i = 0; i < P; ++i)
 #pragma unroll
-            for (int q = 0; q < kPb; ++q) {
-              xv[q] = operand(r0 + ii, k, pos[q]);
-              if (touches(pos[q])) xv[q] += fold(r0 + ii, k, pos[q]);
+    for (int e = 0; e < 4; ++e) d[i][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) mma_tf32(d[i], al[i], bh[i]);
+#pragma unroll
+  for (int i = 0; i < P; ++i) mma_tf32(d[i], ah[i], bl[i]);
+#pragma unroll
+  for (int i = 0; i < P; ++i) mma_tf32(d[i], ah[i], bh[i]);
+}
+
+// acc = A . B on 3xTF32 over a channel product: M the C rows of the
+// streamed weight chunks ([row][KC + 4]: the product's output channels), N
+// NNT n8 tiles of plane columns, K the C reduction channels (plane rows) of
+// each of KT taps, tap k's columns from col0 + k tap_step.  A from the
+// chunk by ldmatrix.x4 (on 32-bit data it hands out TF32's A registers); B
+// from the plane, a float a register: b0 = (row q, column g), b1 = (row q
+// + 4, column g).  Each k8 step's three products go to a fresh sum that is
+// added to the accumulator in f32, as K1's; each product is issued for
+// every tile of the warp before the next (tf32_pairs), so that an mma
+// waits on one of its own sum only MT x NT mmas later.  mirror(k, n), for
+// output column n of tap k, gives a second plane column whose value is
+// added to B's before the split, or -1 (dx's reflect fold terms).
+template <int C, int KT, int NNT, typename Acquire, typename Mirror>
+__device__ __forceinline__ void tc_channel_product(float (&acc)[F32Tiles<C, NNT>::kMt][F32Tiles<C, NNT>::kNt][4],
+                                                   const float* plane, int sp, int col0, int tap_step,
+                                                   Acquire& acquire, Mirror mirror) {
+  using W = F32Tiles<C, NNT>;
+  constexpr int KC = F32Plan<C>::kKc, MT = W::kMt, NT = W::kNt, WS = KC + 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int m0 = (warp / W::kWn) * MT * 16, wn = warp % W::kWn;
+  // ldmatrix.x4 row addresses: A's four 8 x 4 matrices are (rows 0-7 |
+  // 8-15) x (k 0-3 | 4-7) as a0..a3
+  const int a_r = (lane & 7) + ((lane >> 3) & 1) * 8, a_c = (lane >> 4) * 4;
+#pragma unroll
+  for (int a = 0; a < MT; ++a)
+#pragma unroll
+    for (int b = 0; b < NT; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < C; k0 += KC) {
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      const float* w = acquire();
+      const int c0 = col0 + k * tap_step + g;
+#pragma unroll
+      for (int ks = 0; ks < KC; ks += 8) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int a = 0; a < MT; ++a) {
+          uint32_t v[4];
+          ldmatrix_x4(v, w + (m0 + 16 * a + a_r) * WS + ks + a_c);
+          split_tf32(v, ah[a], al[a]);
+        }
+        const float* r0 = plane + plane_row(k0 + ks + q, sp) + c0;
+        const float* r1 = plane + plane_row(k0 + ks + q + 4, sp) + c0;
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int b = 0; b < NT; ++b) {
+          const int nt = min(wn + W::kWn * b, NNT - 1);  // a tile past NNT loads the last one and drops it
+          float v0 = r0[8 * nt], v1 = r1[8 * nt];
+          const int mc = mirror(k, 8 * nt + g);
+          if (mc >= 0) {
+            v0 += plane[plane_row(k0 + ks + q, sp) + mc];
+            v1 += plane[plane_row(k0 + ks + q + 4, sp) + mc];
+          }
+          const uint32_t v[2] = {__float_as_uint(v0), __float_as_uint(v1)};
+          split_tf32(v, bh[b], bl[b]);
+        }
+        // the MT x NT pairs (m-tile a, n-tile b) in one set of passes
+        uint32_t pah[MT * NT][4], pal[MT * NT][4], pbh[MT * NT][2], pbl[MT * NT][2];
+#pragma unroll
+        for (int a = 0; a < MT; ++a)
+#pragma unroll
+          for (int b = 0; b < NT; ++b) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              pah[a * NT + b][e] = ah[a][e];
+              pal[a * NT + b][e] = al[a][e];
             }
-            const float4* wr = reinterpret_cast<const float4*>(ws + (ii * KT + k) * kWs + o0);
-            const float4 wa = wr[0];
-            const float4 wb = wr[1];
-            const float wv[kOcb] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
-            for (int a = 0; a < kOcb; ++a)
+            for (int e = 0; e < 2; ++e) {
+              pbh[a * NT + b][e] = bh[b][e];
+              pbl[a * NT + b][e] = bl[b][e];
+            }
+          }
+        float d[MT * NT][4];
+        tf32_pairs<MT * NT>(d, pah, pal, pbh, pbl);
 #pragma unroll
-              for (int q = 0; q < kPb; ++q) acc[a][q] = fmaf(wv[a], xv[q], acc[a][q]);
+        for (int a = 0; a < MT; ++a)
+#pragma unroll
+          for (int b = 0; b < NT; ++b)
+            if (W::kExact || wn + W::kWn * b < NNT)  // the same for the whole warp
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[a][b][e] += d[a * NT + b][e];
+      }
+    }
+  }
+}
+
+// f(row, column, v0, v1) for each pair of a warp's channel-product
+// accumulators: (row, column) and (row, column + 1)
+template <int C, int NNT, typename F>
+__device__ __forceinline__ void for_each_tc_pair(const float (&acc)[F32Tiles<C, NNT>::kMt][F32Tiles<C, NNT>::kNt][4],
+                                                 F f) {
+  using W = F32Tiles<C, NNT>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int m0 = (warp / W::kWn) * W::kMt * 16, wn = warp % W::kWn;
+#pragma unroll
+  for (int a = 0; a < W::kMt; ++a)
+#pragma unroll
+    for (int b = 0; b < W::kNt; ++b) {
+      const int nt = wn + W::kWn * b;
+      if (!W::kExact && nt >= NNT) continue;
+      f(m0 + 16 * a + g, 8 * nt + 2 * q, acc[a][b][0], acc[a][b][1]);
+      f(m0 + 16 * a + g + 8, 8 * nt + 2 * q, acc[a][b][2], acc[a][b][3]);
+    }
+}
+
+// The gram products' warps: 2 (o) x 4 (i), each a block of kMg m16 tiles
+// by kNg n8 tiles of the C x C output, o0 = 16 kMg (warp / 4), i0 = 8 kNg
+// (warp % 4); kKu k-steps go through one set of 3xTF32 passes.
+template <int C>
+struct F32Gram {
+  static constexpr int kMg = C / 32, kNg = C / 32;
+  static constexpr int kKu = 128 / C;  // k-steps a set of passes: 4 / 8 / 16 pairs at C = 32 / 64 / 128
+  static_assert(kWarps == 8, "the grams' warps are 2 x 4");
+};
+
+// acc[o][i] = sum over KSTEPS k8 steps of A[o][col_a + t] B[i][col_b + t]
+// (planes a and b; the reduction runs over time), on 3xTF32: a0 = (row g,
+// column q), a1 = (g + 8, q), a2 = (g, q + 4), a3 = (g + 8, q + 4); b0 =
+// (row g, column q), b1 = (g, q + 4).  kKu k-steps go through tf32_pairs
+// together, as kKu x MG x NG tile pairs, so that a warp has at least 4
+// independent sums in flight; their fresh sums are added in k-step order.
+template <int C, int KSTEPS>
+__device__ __forceinline__ void tc_gram(float (&acc)[F32Gram<C>::kMg][F32Gram<C>::kNg][4], const float* a,
+                                        int sa, int col_a, const float* b, int sb, int col_b) {
+  constexpr int MG = F32Gram<C>::kMg, NG = F32Gram<C>::kNg, KU = F32Gram<C>::kKu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int o0 = (warp >> 2) * 16 * MG, i0 = (warp & 3) * 8 * NG;
+  const float* ar[MG][2];
+  const float* br[NG];
+#pragma unroll
+  for (int m = 0; m < MG; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ar[m][h] = a + plane_row(o0 + 16 * m + g + 8 * h, sa) + col_a + q;
+#pragma unroll
+  for (int n = 0; n < NG; ++n) br[n] = b + plane_row(i0 + 8 * n + g, sb) + col_b + q;
+#pragma unroll
+  for (int m = 0; m < MG; ++m)
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+#pragma unroll 1
+  for (int ks0 = 0; ks0 < KSTEPS; ks0 += KU) {
+    // the KU x MG x NG pairs (step u, m-tile m, n-tile n) in one set of passes
+    constexpr int P = KU * MG * NG;
+    uint32_t ah[P][4], al[P][4], bh[P][2], bl[P][2];
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const int t = 8 * min(ks0 + u, KSTEPS - 1);  // a step past KSTEPS loads the last one and drops it
+      uint32_t fbh[NG][2], fbl[NG][2];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        const uint32_t v[2] = {__float_as_uint(br[n][t]), __float_as_uint(br[n][t + 4])};
+        split_tf32(v, fbh[n], fbl[n]);
+      }
+#pragma unroll
+      for (int m = 0; m < MG; ++m) {
+        const uint32_t v[4] = {__float_as_uint(ar[m][0][t]), __float_as_uint(ar[m][1][t]),
+                               __float_as_uint(ar[m][0][t + 4]), __float_as_uint(ar[m][1][t + 4])};
+        uint32_t fah[4], fal[4];
+        split_tf32(v, fah, fal);
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const int i = (u * MG + m) * NG + n;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[i][e] = fah[e];
+            al[i][e] = fal[e];
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            bh[i][e] = fbh[n][e];
+            bl[i][e] = fbl[n][e];
           }
         }
       }
     }
+    float d[P][4];
+    tf32_pairs<P>(d, ah, al, bh, bl);
 #pragma unroll
-    for (int a = 0; a < kOcb; ++a)
+    for (int u = 0; u < KU; ++u)
+      if (ks0 + u < KSTEPS)
 #pragma unroll
-      for (int q = 0; q < kPb; ++q)
-        if (valid[q]) epilogue(o0 + a, pos[q], acc[a][q]);
+        for (int m = 0; m < MG; ++m)
+#pragma unroll
+          for (int n = 0; n < NG; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][n][e] += d[(u * MG + m) * NG + n][e];
   }
 }
 
-// out[(o, i, k)] (+)= sum_{j in [j_lo, j_lo + n)} A[o][j] . B[i][j + k * step]
-// for the owned positions of a tile; out is this block's float32 partial,
-// laid out as the torch weight: (o * C + i) * KT + k.  No synchronisation:
-// A and B are complete and not written meanwhile.  Each cell of out is
-// written by one thread, once, so the partial's order is fixed.  FMAs on
-// M x M micro-tiles.
-template <int C, int KT>
-__device__ __forceinline__ void gram_product(const float* A, int lda, const float* B, int ldb,
-                                             int j_lo, int n, int step, float* out, bool first) {
-  constexpr int M = C >= 64 ? 8 : 4;  // micro-tile edge
-  constexpr int kBlocks = C / M;
-  constexpr int items = KT * kBlocks * kBlocks;
-  for (int item = threadIdx.x; item < items; item += kThreads) {
-    const int k = item / (kBlocks * kBlocks);
-    const int rem = item - k * kBlocks * kBlocks;
-    const int ob = rem / kBlocks;
-    const int ib = rem - ob * kBlocks;
-    float acc[M][M];
+// the warp's gram block into out ([o][i], C x C) of the block's partial:
+// written on the block's first tile, added to after; every cell by one
+// lane, once a tile, so the partial's order is fixed
+template <int C>
+__device__ __forceinline__ void store_gram_f32(float (&acc)[F32Gram<C>::kMg][F32Gram<C>::kNg][4], float* out,
+                                               bool first) {
+  constexpr int MG = F32Gram<C>::kMg, NG = F32Gram<C>::kNg;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int o0 = (warp >> 2) * 16 * MG, i0 = (warp & 3) * 8 * NG;
 #pragma unroll
-    for (int a = 0; a < M; ++a)
+  for (int m = 0; m < MG; ++m)
 #pragma unroll
-      for (int c = 0; c < M; ++c) acc[a][c] = 0.f;
-    const float* ap = A + ob * M * lda + j_lo;
-    const float* bp = B + ib * M * ldb + j_lo + k * step;
-    for (int j = 0; j < n; ++j) {
-      float av[M], bv[M];
+    for (int n = 0; n < NG; ++n)
 #pragma unroll
-      for (int a = 0; a < M; ++a) av[a] = ap[a * lda + j];
+      for (int h = 0; h < 2; ++h) {
+        float2* cell = reinterpret_cast<float2*>(out + (o0 + 16 * m + g + 8 * h) * C + i0 + 8 * n + 2 * q);
+        float2 v = make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+        if (!first) {
+          const float2 old = *cell;
+          v = make_float2(old.x + v.x, old.y + v.y);
+        }
+        *cell = v;
+      }
+}
+
+// columns [0, COLS) of channel-major plane rows from NCW x (one batch
+// row), column j being time t_first + j reflect-clamped: eight loads in
+// flight a thread before their stores
+template <int C, int COLS>
+__device__ __forceinline__ void load_f32_plane(const float* __restrict__ xb, float* plane, int stride, int t_first,
+                                               int t_len) {
+  constexpr int kBatch = 8, kN = C * COLS;
+#pragma unroll 1
+  for (int e0 = threadIdx.x; e0 < kN; e0 += kBatch * kThreads) {
+    float v[kBatch];
 #pragma unroll
-      for (int c = 0; c < M; ++c) bv[c] = bp[c * ldb + j];
-#pragma unroll
-      for (int a = 0; a < M; ++a)
-#pragma unroll
-        for (int c = 0; c < M; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int c = e / COLS;
+      if (e < kN) v[u] = xb[static_cast<size_t>(c) * t_len + reflect_clamped(t_first + e - c * COLS, t_len)];
     }
 #pragma unroll
-    for (int a = 0; a < M; ++a)
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        float* cell = out + (static_cast<size_t>(ob * M + a) * C + ib * M + c) * KT + k;
-        *cell = first ? acc[a][c] : *cell + acc[a][c];
-      }
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int c = e / COLS;
+      if (e < kN) plane[plane_row(c, stride) + e - c * COLS] = v[u];
+    }
   }
 }
-
-// float32 TILE per channel count: the widest window (TILE + 18 columns at
-// d = 9) keeps the channel products at about one pass of 256 threads
-template <int C>
-constexpr int f32_tile() { return C == 32 ? 224 : C == 64 ? 96 : 46; }
 
 // ---- one ResidualUnit forward (the recompute of x1 and x2) ----------------
 
-template <int C, int TILE>
-constexpr size_t fwd_smem_floats() {
-  return static_cast<size_t>(C) * (TILE + 2 * kMaxD) + C * TILE + weight_stage_floats(C);
-}
-
-template <int C, int TILE>
-__global__ void __launch_bounds__(kThreads)
-unit_forward_kernel(const float* __restrict__ x, float* __restrict__ y, const float* __restrict__ wd,
-                    const float* __restrict__ wp, int t_len, int d, float slope) {
-  constexpr int WX = TILE + 2 * kMaxD;  // column j is time t0 - d + j
+template <int C, int D>
+__global__ void __launch_bounds__(kThreads, f32_blocks(F32Geometry<C, D>::kFwdSmem, 2))
+unit_forward_fma_kernel(const float* __restrict__ x, float* __restrict__ y, const float* __restrict__ wt,
+                        int t_len, float slope) {
+  using Gm = F32Geometry<C, D>;
+  using Stream = F32Stream<C, false>;
+  constexpr int TILE = F32Plan<C>::kFwdTile, SX = Gm::kFwdSx, SH = Gm::kFwdSh, NP = TILE / 32;
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [C][WX]
-  float* hs = xs + C * WX;                      // [C][TILE]
-  float* ws = hs + C * TILE;
+  float* xs = reinterpret_cast<float*>(smem4);  // [C][SX] unit input: column j is time t0 - D + j
+  float* hs = xs + C * SX;                      // [C][SH] h1: column p is time t0 + p
+  float* ring = hs + C * SH;
 
   const int t0 = blockIdx.x * TILE;
-  const int n_pos = min(TILE, t_len - t0);
-  const int wx = n_pos + 2 * d;
   const size_t plane = static_cast<size_t>(C) * t_len;
   const float* xb = x + blockIdx.y * plane;
   float* yb = y + blockIdx.y * plane;
 
-  for (int e = threadIdx.x; e < C * wx; e += kThreads) {
-    const int c = e / wx;
-    const int j = e - c * wx;
-    xs[c * WX + j] = xb[static_cast<size_t>(c) * t_len + reflect_clamped(t0 - d + j, t_len)];
-  }
-  channel_product<C, 3, false>(
-      wd, ws, n_pos, [&](int ch, int k, int p) { return xs[ch * WX + p + k * d]; },
-      [&](int o, int p, float v) { hs[o * TILE + p] = v; });
-  channel_product<C, 1, false>(
-      wp, ws, n_pos, [&](int ch, int, int p) { return hs[ch * TILE + p]; },
-      [&](int o, int p, float v) {
-        const float act = v >= 0.f ? v : slope * v;
-        yb[static_cast<size_t>(o) * t_len + t0 + p] = xs[o * WX + p + d] + act;
-      });
+  Stream::start(wt, ring, Stream::kChunks);
+  load_f32_plane<C, TILE + 2 * D>(xb, xs, SX, t0 - D, t_len);
+  int m = 0;
+  const auto acquire = [&]() { return Stream::acquire(wt, ring, m++, Stream::kChunks); };
+
+  // h1: tap k of column p reads x column p + k D
+  fma_product<C, 3, D, NP>(xs, SX, TILE, acquire, [&](int o, int p, float v) { hs[plane_row(o, SH) + p] = v; });
+  // x + leaky(Wp . h1), each rounding as the plain chain's
+  fma_product<C, 1, 0, NP>(hs, SH, TILE, acquire, [&](int o, int p, float v) {
+    if (t0 + p < t_len)
+      yb[static_cast<size_t>(o) * t_len + t0 + p] =
+          __fadd_rn(xs[plane_row(o, SX) + p + D], v >= 0.f ? v : __fmul_rn(slope, v));
+  });
 }
 
 // ---- one ResidualUnit backward --------------------------------------------
 
-template <int C, int TILE>
-constexpr size_t bwd_smem_floats() {
-  return static_cast<size_t>(C) * (TILE + 4 * kMaxD) + 2 * C * (TILE + 2 * kMaxD) +
-         weight_stage_floats(C);
-}
-
-template <int C, int TILE>
-__global__ void __launch_bounds__(kThreads, (blocks_per_sm(bwd_smem_floats<C, TILE>() * sizeof(float))))
-unit_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     float* __restrict__ dx, const float* __restrict__ wd,
-                     const float* __restrict__ wp, float* __restrict__ partial, int t_len, int d,
-                     float slope, int tiles_per_row, int n_tiles) {
-  constexpr int WX = TILE + 4 * kMaxD;  // x_u: column j is time t0 - 2d + j
-  constexpr int WG = TILE + 2 * kMaxD;  // G, dh2, h1, dh1: column j is time t0 - d + j
+// kProducts = false stops each tile after its recompute (h1, h2 and dh2
+// over the window), writing no dW and no dx but one cell a tile: a timing
+// aid (vx_residual_stack_backward's dtype 2), on no path.
+template <int C, int D, bool kProducts>
+__global__ void __launch_bounds__(kThreads, f32_blocks(F32Geometry<C, D>::kBwdSmem, F32Plan<C>::kBlocks))
+unit_backward_tf32_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ dx,
+                          const float* __restrict__ wt, float* __restrict__ partial, int t_len, float slope,
+                          int tiles_per_row, int n_tiles) {
+  using Gm = F32Geometry<C, D>;
+  using Stream = F32Stream<C, kProducts>;
+  constexpr int TILE = Gm::kTile, WIN = Gm::kWin, SX = Gm::kSx, SW = Gm::kSw;
+  constexpr int NP = (WIN + 31) / 32;  // the recompute's columns a lane
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [C][WX] unit input, reflect-padded
-  float* ds = xs + C * WX;                      // [C][WG] G, then dh2 in place
-  float* hs = ds + C * WG;                      // [C][WG] h1, then dh1
-  float* ws = hs + C * WG;
-  float* part = partial + static_cast<size_t>(blockIdx.x) * 4 * C * C;  // [dWd 3C^2][dWp C^2]
+  float* xs = reinterpret_cast<float*>(smem4);  // [C][SX] x_u: column j is time t0 - 2D + j, reflect-padded
+  float* ds = xs + C * SX;                      // [C][SW] dh2: column j is time t0 - D + j
+  float* hs = ds + C * SW;                      // [C][SW] h1, then dh1, as dh2
+  float* ring = hs + C * SW;                    // [kStages][buffer] staged weights
+  float* part = partial + static_cast<size_t>(blockIdx.x) * 4 * C * C;  // [dWd tap 0-2 | dWp][o][i]
   const size_t plane = static_cast<size_t>(C) * t_len;
+
+  // the weight stream runs on across the block's tiles
+  const int m_end = (n_tiles - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                    static_cast<int>(gridDim.x) * Stream::kChunks;
+  Stream::start(wt, ring, m_end);
+  int m = 0;
+  const auto acquire = [&]() { return Stream::acquire(wt, ring, m++, m_end); };
 
   bool first = true;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int b = tile / tiles_per_row;
     const int t0 = (tile - b * tiles_per_row) * TILE;
-    const int n_own = min(TILE, t_len - t0);
-    const int wg = n_own + 2 * d;
-    const int wx = n_own + 4 * d;
-    const float* xb = x + b * plane;
     const float* gb = g + b * plane;
-
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < C * wx; e += kThreads) {
-      const int c = e / wx;
-      const int j = e - c * wx;
-      xs[c * WX + j] = xb[static_cast<size_t>(c) * t_len + reflect_clamped(t0 - 2 * d + j, t_len)];
-    }
-    for (int e = threadIdx.x; e < C * wg; e += kThreads) {
-      const int c = e / wg;
-      const int j = e - c * wg;
-      const int t = t0 - d + j;
-      ds[c * WG + j] = (t >= 0 && t < t_len) ? gb[static_cast<size_t>(c) * t_len + t] : 0.f;
-    }
-
-    // h1 over the G window; zero outside [0, T), where nothing is an output
-    channel_product<C, 3, false>(
-        wd, ws, wg, [&](int ch, int k, int p) { return xs[ch * WX + p + k * d]; },
-        [&](int o, int p, float v) {
-          const int t = t0 - d + p;
-          hs[o * WG + p] = (t >= 0 && t < t_len) ? v : 0.f;
-        });
-    // h2 = Wp . h1, then dh2 = G * leaky'(h2) in place (G is 0 outside [0, T))
-    channel_product<C, 1, false>(
-        wp, ws, wg, [&](int ch, int, int p) { return hs[ch * WG + p]; },
-        [&](int o, int p, float v) {
-          float* cell = ds + o * WG + p;
-          *cell = *cell * (v >= 0.f ? 1.f : slope);
-        });
-    __syncthreads();
-    // dWp over the owned rows (window columns d .. d + n_own)
-    gram_product<C, 1>(ds, WG, hs, WG, d, n_own, 0, part + 3 * C * C, first);
-    // dh1 = Wp^T . dh2 over the window (0 outside [0, T), since dh2 is)
-    channel_product<C, 1, true>(
-        wp, ws, wg, [&](int ch, int, int p) { return ds[ch * WG + p]; },
-        [&](int i, int p, float v) { hs[i * WG + p] = v; });
-    __syncthreads();
-    // dWd[o, i, k] = sum_owned dh1[o, t] x_u[i, t + (k-1) d]; in xs columns
-    // the tap-k input of WG column j is j + k d
-    gram_product<C, 3>(hs, WG, xs, WX, d, n_own, d, part, first);
-    // dx_u for the owned rows: G + Wd^T applied to the tap-gathered dh1, with
-    // the reflect pad's transpose as fold terms of the k = 0 and k = 2 taps
-    const int left_hi = d;                 // s in [1, d]: k = 0 tap of t = d - s
-    const int right_lo = t_len - 1 - d;    // s in [T-1-d, T-2]: k = 2 tap of 2(T-1) - s - d
     float* dxb = dx + b * plane;
-    channel_product<C, 3, true>(
-        wd, ws, n_own, [&](int ch, int k, int p) { return hs[ch * WG + p + d - (k - 1) * d]; },
-        [&](int i, int p, float v) {
-          const size_t at = static_cast<size_t>(i) * t_len + t0 + p;
-          dxb[at] = gb[at] + v;
-        },
-        [&](int p) {
-          const int s = t0 + p;
-          return (s >= 1 && s <= left_hi) || (s >= right_lo && s <= t_len - 2);
-        },
-        [&](int ch, int k, int p) {
-          const float* row = hs + ch * WG;
-          const int s = t0 + p;
-          if (k == 0 && s >= 1 && s <= left_hi) return row[(d - s) - (t0 - d)];
-          if (k == 2 && s >= right_lo && s <= t_len - 2) return row[(2 * (t_len - 1) - s - d) - (t0 - d)];
-          return 0.f;
-        });
+    // the last tile's readers of xs finished before its dx product's first
+    // barrier, so the load needs none of its own
+    load_f32_plane<C, TILE + 4 * D>(x + b * plane, xs, SX, t0 - 2 * D, t_len);
+
+    // h1 over the window: column j, tap k reads x column j + k D; 0
+    // outside [0, T), where it meets only dh2 = 0
+    fma_product<C, 3, D, NP>(xs, SX, WIN, acquire, [&](int o, int p, float v) {
+      const int t = t0 - D + p;
+      hs[plane_row(o, SW) + p] = (t >= 0 && t < t_len) ? v : 0.f;
+    });
+    // h2 = Wp . h1, then dh2 = G * leaky'(h2), G = 0 outside [0, T)
+    fma_product<C, 1, 0, NP>(hs, SW, WIN, acquire, [&](int o, int p, float v) {
+      const int t = t0 - D + p;
+      const float gv = (t >= 0 && t < t_len) ? gb[static_cast<size_t>(o) * t_len + t] : 0.f;
+      ds[plane_row(o, SW) + p] = gv * (v >= 0.f ? 1.f : slope);
+    });
+    if constexpr (!kProducts) {
+      // one read of dh2 at a column the compiler cannot know keeps every
+      // dh2 store, and the h2 pass with it
+      if (threadIdx.x == 0) dxb[t0] = ds[plane_row(t0 % C, SW) + D];
+      continue;
+    }
+    __syncthreads();
+    // dWp over the owned rows (window columns D .. D + TILE; dh2 is 0 past T)
+    {
+      float acc[F32Gram<C>::kMg][F32Gram<C>::kNg][4];
+      tc_gram<C, TILE / 8>(acc, ds, SW, D, hs, SW, D);
+      store_gram_f32<C>(acc, part + 3 * C * C, first);
+    }
+    // dh1 = Wp^T . dh2 over the window's n8 tiles, into hs once every warp
+    // is past the gram (the product's first barrier); the columns past the
+    // window meet nothing
+    {
+      float acc[F32Tiles<C, Gm::kWinNt>::kMt][F32Tiles<C, Gm::kWinNt>::kNt][4];
+      tc_channel_product<C, 1, Gm::kWinNt>(acc, ds, SW, 0, 0, acquire, [](int, int) { return -1; });
+      for_each_tc_pair<C, Gm::kWinNt>(acc, [&](int i, int j, float v0, float v1) {
+        *reinterpret_cast<float2*>(hs + plane_row(i, SW) + j) = make_float2(v0, v1);
+      });
+    }
+    __syncthreads();
+    // dWd[o, i, k] = sum_owned dh1[o, t] x_u[i, t + (k-1) D]: owned row p is
+    // window column D + p and x column p + (k+1) D
+#pragma unroll 1
+    for (int k = 0; k < 3; ++k) {
+      float acc[F32Gram<C>::kMg][F32Gram<C>::kNg][4];
+      tc_gram<C, TILE / 8>(acc, hs, SW, D, xs, SX, (k + 1) * D);
+      store_gram_f32<C>(acc, part + k * C * C, first);
+    }
+    // dx_u at the owned rows: G + Wd^T applied to dh1 with tap k at window
+    // column p + (2-k) D, plus the reflect pad's transpose, folded into B:
+    // s in [1, D] takes the k = 0 tap of time D - s too, s in [T-1-D, T-2]
+    // the k = 2 tap of time 2(T-1) - s - D (window column = time - t0 + D)
+    {
+      float acc[F32Tiles<C, TILE / 8>::kMt][F32Tiles<C, TILE / 8>::kNt][4];
+      const bool edge = t0 <= D || t0 + TILE >= t_len - 1 - D;
+      tc_channel_product<C, 3, TILE / 8>(acc, hs, SW, 2 * D, -D, acquire, [&](int k, int p) {
+        const int s = t0 + p;
+        if (!edge) return -1;
+        if (k == 0 && s >= 1 && s <= D) return 2 * D - s - t0;
+        if (k == 2 && s >= t_len - 1 - D && s <= t_len - 2) return 2 * (t_len - 1) - s - t0;
+        return -1;
+      });
+      for_each_tc_pair<C, TILE / 8>(acc, [&](int i, int p, float v0, float v1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int s = t0 + p + h;
+          if (s >= t_len) continue;
+          const size_t at = static_cast<size_t>(i) * t_len + s;
+          dxb[at] = gb[at] + (h ? v1 : v0);
+        }
+      });
+    }
     first = false;
   }
 }
@@ -968,10 +1356,9 @@ unit_backward_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ g
   }
 }
 
-// out[e] = sum over blocks of partial[block][e], in block order.  The bf16
-// partial is laid out [tap 0-2 | dWp][o][i] and is permuted here to
-// [dWd (o, i, k) | dWp (o, i)]; the f32 one already is.
-template <bool kTapMajor>
+// out[e] = sum over blocks of partial[block][e], in block order.  Each
+// block's partial is laid out [tap 0-2 | dWp][o][i] and is permuted here to
+// [dWd (o, i, k) | dWp (o, i)].
 __global__ void __launch_bounds__(kThreads)
 reduce_partials_kernel(const float* __restrict__ partial, float* __restrict__ out, int n_blocks, int c) {
   const int cc = c * c;
@@ -979,13 +1366,9 @@ reduce_partials_kernel(const float* __restrict__ partial, float* __restrict__ ou
   if (e >= 4 * cc) return;
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[static_cast<size_t>(b) * 4 * cc + e];
-  if (kTapMajor) {
-    const int slot = e / cc;
-    const int oi = e - slot * cc;
-    out[slot < 3 ? oi * 3 + slot : 3 * cc + oi] = s;
-  } else {
-    out[e] = s;
-  }
+  const int slot = e / cc;
+  const int oi = e - slot * cc;
+  out[slot < 3 ? oi * 3 + slot : 3 * cc + oi] = s;
 }
 
 // ============================================================================
@@ -1003,7 +1386,7 @@ struct Args {
   float* g_a;
   float* g_b;
   float* partial;
-  void* wt;  // bf16: 3 x kSlots x C^2 laid-out weights
+  void* wt;  // laid-out weights: bf16 3 x kSlots x C^2, float32 3 x 4 x C^2
   int n_blocks;
   int batch, t_len;
   float slope;
@@ -1015,50 +1398,60 @@ cudaError_t set_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
-template <int C>
-cudaError_t run_f32(const Args& a) {
-  constexpr int TILE = f32_tile<C>();
+// the dW reduction of one unit's backward
+cudaError_t launch_reduce(const Args& a, int u, int c) {
+  const int n = 4 * c * c;
+  reduce_partials_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
+      a.partial, a.dw + static_cast<size_t>(u) * n, a.n_blocks, c);
+  return cudaGetLastError();
+}
+
+template <int C, int D>
+cudaError_t launch_forward_f32(const Args& a, const void* x, void* y, int u) {
+  constexpr size_t smem = F32Geometry<C, D>::kFwdSmem;
+  constexpr int TILE = F32Plan<C>::kFwdTile;
+  auto kern = unit_forward_fma_kernel<C, D>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.t_len + TILE - 1) / TILE, a.batch);
+  kern<<<grid, kThreads, smem, a.stream>>>(static_cast<const float*>(x), static_cast<float*>(y),
+                                           static_cast<const float*>(a.wt) + static_cast<size_t>(u) * 4 * C * C,
+                                           a.t_len, a.slope);
+  return cudaGetLastError();
+}
+
+template <int C, int D, bool kProducts>
+cudaError_t launch_backward_f32(const Args& a, const void* x, const float* g, void* dx, int u) {
+  constexpr size_t smem = F32Geometry<C, D>::kBwdSmem;
+  constexpr int TILE = F32Plan<C>::kTile;
   const int tiles_per_row = (a.t_len + TILE - 1) / TILE;
-  const int n_tiles = tiles_per_row * a.batch;
-  const int dils[3] = {1, 3, 9};
-  cudaError_t err;
+  auto kern = unit_backward_tf32_kernel<C, D, kProducts>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<a.n_blocks, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(x), g, static_cast<float*>(dx),
+      static_cast<const float*>(a.wt) + static_cast<size_t>(u) * 4 * C * C, a.partial, a.t_len, a.slope,
+      tiles_per_row, tiles_per_row * a.batch);
+  if ((err = cudaGetLastError()) != cudaSuccess || !kProducts) return err;
+  return launch_reduce(a, u, C);
+}
 
-  // 1. recompute the unit inputs x1, x2
-  {
-    const size_t smem = fwd_smem_floats<C, TILE>() * sizeof(float);
-    auto kern = unit_forward_kernel<C, TILE>;
-    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
-    const dim3 grid(tiles_per_row, a.batch);
-    const void* ins[2] = {a.x, a.x1};
-    void* outs[2] = {a.x1, a.x2};
-    for (int u = 0; u < 2; ++u) {
-      kern<<<grid, kThreads, smem, a.stream>>>(
-          static_cast<const float*>(ins[u]), static_cast<float*>(outs[u]),
-          static_cast<const float*>(a.w[2 * u]), static_cast<const float*>(a.w[2 * u + 1]), a.t_len,
-          dils[u], a.slope);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-  }
-
-  // 2. units 2, 1, 0 backward, each followed by its dW reduction
-  const void* xin[3] = {a.x, a.x1, a.x2};
-  const float* gin[3] = {a.g_b, a.g_a, a.g};
-  float* gout[3] = {static_cast<float*>(a.dx), a.g_b, a.g_a};
-  const int n = 4 * C * C;
-  const size_t smem = bwd_smem_floats<C, TILE>() * sizeof(float);
-  auto kern = unit_backward_kernel<C, TILE>;
-  if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
-  for (int u = 2; u >= 0; --u) {
-    kern<<<a.n_blocks, kThreads, smem, a.stream>>>(
-        static_cast<const float*>(xin[u]), gin[u], gout[u], static_cast<const float*>(a.w[2 * u]),
-        static_cast<const float*>(a.w[2 * u + 1]), a.partial, a.t_len, dils[u], a.slope,
-        tiles_per_row, n_tiles);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    reduce_partials_kernel<false><<<(n + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
-        a.partial, a.dw + static_cast<size_t>(u) * n, a.n_blocks, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+template <int C, bool kProducts>
+cudaError_t run_f32(const Args& a) {
+  const int n = 12 * C * C;
+  layout_unit_weights_f32_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.w[0]), static_cast<const float*>(a.w[1]),
+      static_cast<const float*>(a.w[2]), static_cast<const float*>(a.w[3]),
+      static_cast<const float*>(a.w[4]), static_cast<const float*>(a.w[5]), static_cast<float*>(a.wt), C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // 1. recompute the unit inputs x1, x2; 2. units 2, 1, 0 backward (G in
+  // g, g_a, g_b), each with its dW reduction
+  if ((err = launch_forward_f32<C, 1>(a, a.x, a.x1, 0)) != cudaSuccess) return err;
+  if ((err = launch_forward_f32<C, 3>(a, a.x1, a.x2, 1)) != cudaSuccess) return err;
+  if ((err = launch_backward_f32<C, 9, kProducts>(a, a.x2, a.g, a.g_a, 2)) != cudaSuccess) return err;
+  if ((err = launch_backward_f32<C, 3, kProducts>(a, a.x1, a.g_a, a.g_b, 1)) != cudaSuccess) return err;
+  return launch_backward_f32<C, 1, kProducts>(a, a.x, a.g_b, a.dx, 0);
 }
 
 template <int C, int D>
@@ -1089,10 +1482,7 @@ cudaError_t launch_backward(const Args& a, const void* x, const float* g, void* 
       static_cast<const bf16*>(a.w[2 * u]), a.partial, a.t_len, a.slope, tiles_per_row,
       tiles_per_row * a.batch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int n = 4 * C * C;
-  reduce_partials_kernel<true><<<(n + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
-      a.partial, a.dw + static_cast<size_t>(u) * n, a.n_blocks, C);
-  return cudaGetLastError();
+  return launch_reduce(a, u, C);
 }
 
 template <int C>
@@ -1142,13 +1532,14 @@ cudaError_t config(int dtype, int device, int batch, int t_len, int* out) {
   cudaError_t err;
   int blocks[3];
   if (dtype == 0) {
-    constexpr int TILE = f32_tile<C>();
-    constexpr size_t smem = bwd_smem_floats<C, TILE>() * sizeof(float);
-    out[0] = TILE;
-    for (int u = 0; u < 3; ++u)
-      if ((err = describe(unit_backward_kernel<C, TILE>, kThreads, smem, device, out + 3 + 4 * u, blocks + u)) !=
-          cudaSuccess)
-        return err;
+    out[0] = F32Plan<C>::kTile;
+    if ((err = describe(unit_backward_tf32_kernel<C, 9, true>, kThreads, F32Geometry<C, 9>::kBwdSmem, device, out + 3,
+                        blocks)) != cudaSuccess ||
+        (err = describe(unit_backward_tf32_kernel<C, 3, true>, kThreads, F32Geometry<C, 3>::kBwdSmem, device, out + 7,
+                        blocks + 1)) != cudaSuccess ||
+        (err = describe(unit_backward_tf32_kernel<C, 1, true>, kThreads, F32Geometry<C, 1>::kBwdSmem, device, out + 11,
+                        blocks + 2)) != cudaSuccess)
+      return err;
   } else if (dtype == 1) {
     constexpr int kT = mma_threads<C>();
     out[0] = MmaPlan<C>::kTile;
@@ -1178,8 +1569,9 @@ cudaError_t config_for(int channels, int dtype, int device, int batch, int t_len
 
 template <int C>
 cudaError_t run(int dtype, const Args& a) {
-  if (dtype == 0) return run_f32<C>(a);
+  if (dtype == 0) return run_f32<C, true>(a);
   if (dtype == 1) return run_mma<C>(a);
+  if (dtype == 2) return run_f32<C, false>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -1199,11 +1591,12 @@ int vx_residual_stack_backward_config(int batch, int channels, int t_len, int dt
 }
 
 // x, dx, x1, x2: (batch, channels, t_len) of one type (dtype 0 = float32,
-// 1 = bfloat16); g, g_a, g_b: (batch, channels, t_len) float32; w*: the six
+// 1 = bfloat16; 2 = float32 with each unit's backward stopped after its
+// recompute, which writes no dx and no dW: a timing aid); g, g_a, g_b: (batch, channels, t_len) float32; w*: the six
 // effective weights in x's type, wd (C, C, 3) and wp (C, C, 1); dw: float32
 // 3 x [dWd (C, C, 3) | dWp (C, C)] for units 0, 1, 2; partial: blocks x 4 C^2
 // float32 with blocks from vx_residual_stack_backward_config; wt: 24 C^2
-// elements of x's type (bf16 only; float32 ignores it).  x1, x2, g_a, g_b,
+// elements of x's type in bf16, 12 C^2 in float32.  x1, x2, g_a, g_b,
 // partial and wt are scratch.  Launches on `stream`; returns a cudaError_t.
 int vx_residual_stack_backward(const void* x, const void* g, void* dx, const void* wd0,
                                const void* wp0, const void* wd1, const void* wp1,

@@ -13,9 +13,11 @@ A ResidualUnit is ``x + leaky(pointwise(dilated_k3(x)))`` with reflect
   the plain version.  K1 runs its products on the tensor cores: bf16
   operands for bfloat16, and for float32 three TF32 products of a hi/lo
   split of each operand (3xTF32), which holds float32's accuracy.  K2 runs
-  bfloat16 on the tensor cores and float32 as FMAs in the plain
-  convolutions' order, which its float32 bar needs (see
-  ``csrc/fused_residual_bwd.cu``).
+  bfloat16 on the tensor cores.  In float32 it recomputes the forward
+  (x1, x2 and each unit's h1, h2) on FMAs in the plain convolutions'
+  summation order, so that leaky'(h2) takes the plain chain's sign, which
+  its float32 bar needs, and runs the gradient products (dWp, dh1, dWd,
+  dx) on the tensor cores in 3xTF32 (see ``csrc/fused_residual_bwd.cu``).
 
 ``residual_stack_backward`` is K2's wrapper and ``plain_residual_stack_backward``
 its plain version (autograd of the plain stack).  K2 returns dx in x's dtype
@@ -45,6 +47,7 @@ __all__ = [
     "plain_residual_stack",
     "residual_stack_backward",
     "residual_stack_backward_config",
+    "residual_stack_backward_recompute",
     "plain_residual_stack_backward",
 ]
 
@@ -234,6 +237,41 @@ def residual_stack(
 residual_stack.launches = 0
 
 
+def _launch_backward(x: torch.Tensor, flat, g: torch.Tensor, slope: float, code: int):
+    """K2's launches for CUDA tensors (``code``: the library's dtype code);
+    returns dx and the float32 dW, (3, 4 C^2)."""
+    b, c, t = x.shape
+    dev = x.device.index or 0
+    blocks = _backward_config(b, c, t, _DTYPES[x.dtype], dev)[1]  # the grid: one dW partial a block
+    g32 = g.detach().to(torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    dw = torch.empty(3, 4 * c * c, device=x.device, dtype=torch.float32)
+    x1, x2 = torch.empty_like(x), torch.empty_like(x)
+    g_a, g_b = torch.empty_like(g32), torch.empty_like(g32)
+    partial = torch.empty(blocks, 4 * c * c, device=x.device, dtype=torch.float32)
+    # scratch: each unit's weights laid out for the kernels' 16-byte copies,
+    # in eight [n][k] slots in bf16 and four [r][o] slots in float32
+    wt = torch.empty((24 if x.dtype == torch.bfloat16 else 12) * c * c, device=x.device, dtype=x.dtype)
+    lib = _backward_library()
+    err = lib.vx_residual_stack_backward(
+        x.data_ptr(), g32.data_ptr(), dx.data_ptr(), *[w.data_ptr() for w in flat],
+        dw.data_ptr(), x1.data_ptr(), x2.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
+        partial.data_ptr(), wt.data_ptr(), blocks, b, c, t, code, float(slope), dev,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused residual backward launch failed: {lib.vx_error_string(err).decode()}")
+    return dx, dw
+
+
+def _check_backward_inputs(x: torch.Tensor, kernels: Kernels, g: torch.Tensor, dilations) -> list:
+    flat = [w for pair in kernels for w in pair]
+    _check_cuda_inputs(x, flat, dilations)
+    if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
+        raise ValueError(f"g is {tuple(g.shape)} on {g.device}, x is {tuple(x.shape)} on {x.device}")
+    return flat
+
+
 def residual_stack_backward(
     x: torch.Tensor, kernels: Kernels, g: torch.Tensor,
     dilations: Sequence[int] = _DILATIONS, slope: float = 0.01,
@@ -245,38 +283,30 @@ def residual_stack_backward(
         return plain_residual_stack_backward(x, kernels, g, dilations, slope)
     if x.device.type != "cuda":
         raise ValueError(f"residual_stack_backward runs on cpu or cuda, got {x.device}")
-    flat = [w for pair in kernels for w in pair]
-    _check_cuda_inputs(x, flat, dilations)
-    if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
-        raise ValueError(f"g is {tuple(g.shape)} on {g.device}, x is {tuple(x.shape)} on {x.device}")
-    b, c, t = x.shape
-    dev = x.device.index or 0
-    blocks = _backward_config(b, c, t, _DTYPES[x.dtype], dev)[1]  # the grid: one dW partial a block
-    g32 = g.detach().to(torch.float32).contiguous()
-    dx = torch.empty_like(x)
-    dw = torch.empty(3, 4 * c * c, device=x.device, dtype=torch.float32)
-    x1, x2 = torch.empty_like(x), torch.empty_like(x)
-    g_a, g_b = torch.empty_like(g32), torch.empty_like(g32)
-    partial = torch.empty(blocks, 4 * c * c, device=x.device, dtype=torch.float32)
-    # bf16 scratch: each unit's weights laid out in eight [n][k] slots for the
-    # kernels' 16-byte copies; float32 takes none
-    wt = torch.empty(24 * c * c if x.dtype == torch.bfloat16 else 0, device=x.device, dtype=x.dtype)
-    lib = _backward_library()
-    err = lib.vx_residual_stack_backward(
-        x.data_ptr(), g32.data_ptr(), dx.data_ptr(), *[w.data_ptr() for w in flat],
-        dw.data_ptr(), x1.data_ptr(), x2.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
-        partial.data_ptr(), wt.data_ptr(), blocks, b, c, t, _DTYPES[x.dtype], float(slope), dev,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused residual backward launch failed: {lib.vx_error_string(err).decode()}")
+    flat = _check_backward_inputs(x, kernels, g, dilations)
+    dx, dw = _launch_backward(x, flat, g, slope, _DTYPES[x.dtype])
     residual_stack_backward.launches += 1
+    c = x.shape[1]
     dws = tuple(
         (dw[u, : 3 * c * c].view(c, c, 3).to(flat[2 * u].dtype),
          dw[u, 3 * c * c :].view(c, c, 1).to(flat[2 * u + 1].dtype))
         for u in range(3)
     )
     return dx, dws
+
+
+def residual_stack_backward_recompute(
+    x: torch.Tensor, kernels: Kernels, g: torch.Tensor, slope: float = 0.01,
+) -> None:
+    """A timing aid for K2 in float32, on no path: the launches of
+    ``residual_stack_backward`` with each unit's backward pass stopped after
+    its recompute (h1, h2 and dh2 over the tile's window), so that its
+    products' time is the whole pass's less this one's.  Computes no dx and
+    no dW; CUDA float32 tensors only; not counted in
+    ``residual_stack_backward.launches``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"the recompute alone runs on CUDA float32 tensors, got {x.dtype} on {x.device}")
+    _launch_backward(x, _check_backward_inputs(x, kernels, g, _DILATIONS), g, slope, 2)
 
 
 residual_stack_backward.launches = 0
