@@ -236,7 +236,17 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     ``logging=csv`` (it reads the CSV's test metrics) over NCCL and the
     default ``trainer.mesh``: fit, test("last"), a resumed epoch and its
     test;
-39. the ``kernels`` line (all four kernels), then the result line.
+39. weights_day: the port's weights-day runbook
+    (``scripts/weights_day.py --stage all --offline-dry-run``) on the card
+    in a temporary cache: full-width donors in the published formats
+    (EBEN's hub layout, an HF wav2vec2-base directory, ECAPA2 as a
+    TorchScript archive, SQUIM's torchaudio-key state dicts, an HF Mimi
+    directory), read back and run by ``convert`` (K1 six launches, K3 one),
+    then ``spkv_ecapa2_eval`` executed at full width on the staged archive
+    (K3 twice a trial) and the other four parity configs composed and
+    instantiated: each stage's wall and launches, the manifest's keys, the
+    executed EER and minDCF, and the checkpoint variables put back;
+40. the ``kernels`` line (all four kernels), then the result line.
 
 A rank of phases 36-37 is ``python3 chip_smoke.py --worker <kind>`` with
 the torchrun variables set (``run_workers``); a rank that fails or runs
@@ -4127,6 +4137,74 @@ def phase_cli_dp(run_dir: str) -> dict:
     return out
 
 
+WEIGHTS_DAY_TRIALS = 8  # the executed spkv_ecapa2_eval's limit_test_batches, one trial a batch
+WEIGHTS_DAY_ARTIFACTS = {"eben_temple_vibration_pickup", "phonemizer_throat_microphone", "ecapa2", "squim", "mimi"}
+
+
+def phase_weights_day(smi: str) -> dict:
+    """The port's weights-day runbook as a user runs it on the card:
+    ``python -m vibravox_tpu_torch.scripts.weights_day --stage all
+    --offline-dry-run`` (``main``), full-width donors in the published
+    formats, in a temporary ``--cache-dir``.  Each stage (fetch: the donors;
+    convert; parity) is timed, with the K1-K4 launches it made (counts reset
+    just before it, read just after): convert runs the EBEN forward (K1 six
+    times) and the ECAPA2 embedding (K3 once), parity the executed
+    ``spkv_ecapa2_eval`` (K3 twice a trial).  Fails unless every artifact is
+    staged, the executed row's EER and minDCF are numbers, those launches
+    happened, and ``VIBRAVOX_ECAPA2_CKPT`` / ``VIBRAVOX_SQUIM_DIR`` are as
+    they were."""
+    from vibravox_tpu_torch.scripts import weights_day
+
+    stages: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            reset_counts()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[name] = {"wall_s": time.perf_counter() - t0, "launches": read_counts()}
+            return result
+        return wrapper
+
+    env = {k: os.environ.get(k) for k in weights_day.STAGED_ENV}
+    with tempfile.TemporaryDirectory(prefix="vibravox_weights_day_") as tmp, \
+            mock.patch.object(weights_day, "stage_make_offline_donors",
+                              timed("fetch", weights_day.stage_make_offline_donors)), \
+            mock.patch.object(weights_day, "stage_convert", timed("convert", weights_day.stage_convert)), \
+            mock.patch.object(weights_day, "stage_parity", timed("parity", weights_day.stage_parity)):
+        t0 = time.perf_counter()
+        weights_day.main(["--stage", "all", "--offline-dry-run", "--cache-dir", str(Path(tmp) / "cache"),
+                          "--output", str(Path(tmp) / "REAL_DATA.md")])
+        wall = time.perf_counter() - t0
+        manifest = json.loads((Path(tmp) / "cache/staged/manifest.json").read_text())
+        raw_bytes = sum(f.stat().st_size for f in (Path(tmp) / "cache/raw").rglob("*") if f.is_file())
+        rows = {line.split("|")[1].strip(): json.loads(line.split("|")[2].strip())
+                for line in (Path(tmp) / "REAL_DATA.md").read_text().splitlines()
+                if line.startswith("| ") and not line.startswith("| config")}
+    executed = rows.get("spkv_ecapa2_eval", {}).get("dry_run_executed", {})
+    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in ("K1", "K2", "K3", "K4")}
+    env_after = {k: os.environ.get(k) for k in weights_day.STAGED_ENV}
+    out = {"phase": "weights_day", "card": smi, "wall_s": wall, "stages": stages, "launches": launches,
+           "manifest_keys": sorted(manifest), "raw_bytes": raw_bytes, "executed": executed, "rows": rows,
+           "env_restored": env_after == env}
+    emit(out)
+    if set(manifest) != WEIGHTS_DAY_ARTIFACTS:
+        raise AssertionError(f"the runbook staged {sorted(manifest)}, not {sorted(WEIGHTS_DAY_ARTIFACTS)}")
+    if set(executed) != {"test/equal_error_rate", "test/minimum_dcf"} or not all(
+            isinstance(v, (int, float)) and math.isfinite(v) for v in executed.values()):
+        raise AssertionError(f"the executed spkv_ecapa2_eval row: {rows.get('spkv_ecapa2_eval')}")
+    if len(rows) != 5 or any(rows[n] != {"dry_run": "compose+instantiate ok"} for n in rows if n != "spkv_ecapa2_eval"):
+        raise AssertionError(f"the parity rows: {rows}")
+    want = {"fetch": {"K1": 0, "K2": 0, "K3": 0, "K4": 0}, "convert": {"K1": 6, "K2": 0, "K3": 1, "K4": 0},
+            "parity": {"K1": 0, "K2": 0, "K3": 2 * WEIGHTS_DAY_TRIALS, "K4": 0}}
+    if {k: st["launches"] for k, st in stages.items()} != want:
+        raise AssertionError(f"the runbook's launches by stage {stages} (want {want})")
+    if env_after != env:
+        raise AssertionError(f"the runbook left {env_after} in the environment (before: {env})")
+    return out
+
+
 WORKERS = {"dp_parity": worker_dp_parity, "dp_overhead": worker_dp_overhead, "fsdp_stp": worker_fsdp_stp,
            "tp_mimi": worker_tp_mimi}
 
@@ -4186,8 +4264,9 @@ def main() -> int:
     phase_fsdp_tp()
     with tempfile.TemporaryDirectory(prefix="vibravox_cli_dp_") as cli_dp_dir:
         phase_cli_dp(cli_dp_dir)
+    weights_day = phase_weights_day(smi)
     emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp))
+                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4218,7 +4297,7 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
 
 
 def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
-                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp) -> dict:
+                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day) -> dict:
     """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
@@ -4228,7 +4307,8 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
     included, the STP, Mimi and SQUIM paths, which run none of the four
     kernels, the hub enhancement script (K1 alone), the CLI tests with
     SQUIM (K1 and K3), the dp_parity ranks' own counts (the timed bf16
-    steps, the float32 parity step), and the SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
+    steps, the float32 parity step), the weights-day runbook (K1 and K3),
+    and the SPKV paths, which run K3 alone (its ``spkv`` block: the log-mel front
     end's fft-512 times and bounds, per call at the b32 regime's shape and
     at a batch-1 trial).  K1's serving numbers (per forward, float32 and bfloat16, 1 s
     bucket, batch 8) and its float32 eval numbers (per eval forward of the
@@ -4258,7 +4338,8 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
                 "cli_squim_test": squim["cli"]["eben"]["launches"][key],
                 "cli_squim_noisybwe_test": squim["cli"]["noisybwe"]["launches"][key],
                 "dp_parity_timed_steps_by_rank": [r["launches"][key] for r in dp["bf16"]],
-                "dp_parity_float32_step_by_rank": [r[key] for r in dp["parity"]["launches_by_rank"]]}
+                "dp_parity_float32_step_by_rank": [r[key] for r in dp["parity"]["launches_by_rank"]],
+                "weights_day": weights_day["launches"][key]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]

@@ -2,7 +2,8 @@
 
 The port must stand alone: no module of ``vibravox_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax, the JAX package or
-``transformers``, ``safetensors`` or ``tensorboardX`` (the GPU machine has none of them).  Its entry points
+``transformers``, ``safetensors``, ``tensorboardX`` or ``huggingface_hub`` (the GPU machine has none
+of them, and the port never downloads).  Its entry points
 run on the GPU unless asked for the CPU, and raise without a GPU."""
 
 import ast
@@ -18,7 +19,7 @@ from vibravox_tpu_torch.serving import EnhanceServer, StreamingEnhancer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vibravox_tpu", "transformers", "safetensors",
-             "tensorboardX"}
+             "tensorboardX", "huggingface_hub"}
 
 
 def _imported_roots(path: Path):

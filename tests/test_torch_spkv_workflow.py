@@ -3,14 +3,17 @@
 ``lightning_datamodule=spkv lightning_module=ecapa2 logging=csv`` on the
 synthetic source (8 utterances of 4 speakers: 8 trials at batch 1) with the
 tiny ECAPA2 through ``ecapa2_from_config`` and one checkpoint file, given
-to both CLIs by ``++lightning_module.checkpoint_path``: the port's
+to both CLIs by ``++lightning_module.checkpoint_path``, once a torch state
+dict and once the same weights as a TorchScript archive (the published
+ECAPA2 checkpoint's format): the port's
 ``test/*`` metrics equal JAX's: EER and minDCF exactly (the nearest two
 trials' scores are 9e-3 apart); the distance statistics within 1e-5
 (measured 4.5e-6); the EER's threshold, one trial's cosine, within 5e-5
 (measured 9.5e-6).  On this speech-like audio the two packages' float32
 sums (their front ends alone differ by up to 4.1e-5 in near-silent mel
 bins, see ``tests/test_torch_spkv_model.py``) put cosines up to 1e-5
-apart.  Then the port alone: the
+apart.  The two tasks' embeddings of the file agree within 2e-5 of their
+scale, the SPKV bar of ``tests/test_torch_spkv_model.py``.  Then the port alone: the
 ECAPA-TDNN stand-in through the config, a ``same_gender`` run over a pairs
 file written by the port's ``gen_pairs_for_spkv``, and the composed
 config's targets.  No loader workers: the file imports JAX.
@@ -18,8 +21,10 @@ config's targets.  No loader workers: the file imports JAX.
 
 import importlib.util
 import math
+import warnings
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,6 +78,44 @@ def checkpoint(tmp_path_factory):
     return path
 
 
+@pytest.fixture(params=["state_dict", "torchscript"])
+def checkpoint_file(request, checkpoint, tmp_path):
+    """``checkpoint``'s weights as a state dict, or ``torch.jit.save``d as a
+    traced ``ECAPA2``."""
+    if request.param == "state_dict":
+        return checkpoint
+    model = ecapa2_from_config("tiny", device="cpu").eval()
+    model.load_state_dict(torch.load(checkpoint, weights_only=True), strict=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", torch.jit.TracerWarning)
+        archive = torch.jit.trace(model, torch.zeros(1, 16000), check_trace=False)
+    path = tmp_path / "ecapa2_tiny_torchscript.pt"
+    torch.jit.save(archive, str(path))
+    return path
+
+
+def _embeddings_of_both_tasks(path):
+    """The port's and the JAX package's ``SPKVTask`` embedders loaded from
+    ``path``, on the first 2 s of the test split's utterances."""
+    import jax
+
+    from vibravox_tpu.models.ecapa2 import PRESETS as JAX_PRESETS
+    from vibravox_tpu.models.ecapa2 import ECAPA2 as JaxECAPA2
+    from vibravox_tpu.tasks.ecapa2_spkv import SPKVTask as JaxSPKVTask
+    from vibravox_tpu_torch.data.sources import SyntheticVibravoxSource
+    from vibravox_tpu_torch.tasks.ecapa2_spkv import SPKVTask
+
+    source = SyntheticVibravoxSource(n_utterances=8, split="spkv-test", with_metadata=True)
+    audio = np.stack([source[i]["audio_body_conducted"][:32000] for i in range(len(source))])
+    jax_task = JaxSPKVTask(embedder=JaxECAPA2(JAX_PRESETS["tiny"]()), checkpoint_path=str(path))
+    state = jax_task.init_state(jax.random.key(0), {})
+    ref = np.asarray(jax.jit(jax_task.embedder.apply)(state.params, audio))
+    task = SPKVTask(embedder=ecapa2_from_config("tiny", device="cpu"), checkpoint_path=str(path), device="cpu")
+    with torch.no_grad():
+        ours = task.init_state(0).embedder(torch.from_numpy(audio)).numpy()
+    return ours, ref
+
+
 def _jax_main(argv):
     import jax
 
@@ -91,10 +134,10 @@ def _jax_main(argv):
             jax.config.update(k, v)
 
 
-def test_cli_test_metrics_equal_jax(checkpoint, tmp_path):
+def test_cli_test_metrics_equal_jax(checkpoint_file, tmp_path):
     from vibravox_tpu_torch.run import main
 
-    common = CLI_ARGS + [f"++lightning_module.checkpoint_path={checkpoint}"]
+    common = CLI_ARGS + [f"++lightning_module.checkpoint_path={checkpoint_file}"]
     ours = main(common + ["++device=cpu", f"++run_dir={tmp_path / 'port'}"])
     ref = _jax_main(common + [f"++run_dir={tmp_path / 'jax'}"])
     assert set(ours) == set(ref) == METRICS
@@ -106,6 +149,8 @@ def test_cli_test_metrics_equal_jax(checkpoint, tmp_path):
         assert abs(ours[k] - ref[k]) <= 1e-5, k
     header = (tmp_path / "port" / "csv" / "metrics.csv").read_text().splitlines()[0]
     assert "test/equal_error_rate" in header and "test/minimum_dcf" in header
+    ours, ref = _embeddings_of_both_tasks(checkpoint_file)
+    assert np.abs(ours - ref).max() <= 2e-5 * np.abs(ref).max()
 
 
 def test_cli_runs_the_ecapa_tdnn_stand_in(tmp_path):

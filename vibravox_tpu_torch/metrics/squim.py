@@ -7,10 +7,11 @@ over the networks of ``vibravox_tpu_torch.models.squim``.
 
 Weights: ``load_squim_predictors`` reads ``squim_objective.pt`` and
 ``squim_subjective.pt`` from ``checkpoint_dir`` or ``$VIBRAVOX_SQUIM_DIR``;
-each is a torch state dict in torchaudio's keys, read with
-``torch.load(weights_only=True)`` (the JAX loader also takes a pickled
-module).  A missing file leaves its metric out; a file whose keys or shapes
-do not fit the architecture raises.  The predictors run on ``device``
+each is a torch state dict in torchaudio's keys (or a TorchScript archive
+of such a module), read by ``models/hub.py::load_state_dict`` (the JAX
+loader also takes a pickled module, which the port refuses).  A missing
+file leaves its metric out; a file whose keys or shapes do not fit the
+architecture raises.  The predictors run on ``device``
 (``None`` for the GPU, which raises without one, or ``"cpu"``) without
 gradients, in IEEE float32.
 """
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from vibravox_tpu_torch.device import DeviceLike, resolve_device
+from vibravox_tpu_torch.models.hub import load_state_dict
 from vibravox_tpu_torch.models.squim import SquimObjective, SquimSubjective
 
 __all__ = [
@@ -45,13 +47,6 @@ class MissingPretrainedPredictor(RuntimeError):
 # (apply_fn, model): apply_fn(model, *audio) -> (B,) scores
 Predictor = Tuple[Callable, nn.Module]
 Audio = Union[torch.Tensor, np.ndarray]
-
-
-def _load_state_dict(path: Union[str, Path]):
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(sd, dict):
-        raise TypeError(f"{path}: expected a state dict, got {type(sd).__name__}")
-    return sd
 
 
 def _empty(make: Callable[[], nn.Module], device: torch.device) -> nn.Module:
@@ -77,7 +72,7 @@ def load_squim_objective(path: Union[str, Path], device: DeviceLike = None) -> P
     ``SquimObjective`` state dict."""
     dev = resolve_device(device)
     model = _empty(SquimObjective, dev)
-    model.load_state_dict(_load_state_dict(path), strict=True)
+    model.load_state_dict(load_state_dict(path), strict=True)
     return _objective_stoi, model
 
 
@@ -86,7 +81,7 @@ def load_squim_subjective(path: Union[str, Path], device: DeviceLike = None) -> 
     predictor from a torchaudio ``SquimSubjective`` state dict."""
     dev = resolve_device(device)
     model = _empty(SquimSubjective, dev)
-    model.load_torchaudio_state_dict(_load_state_dict(path))
+    model.load_torchaudio_state_dict(load_state_dict(path))
     return _subjective_mos, model
 
 

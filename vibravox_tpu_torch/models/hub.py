@@ -6,7 +6,9 @@ EBEN networks with ``PyTorchModelHubMixin`` (``Cnam-LMSSC/EBEN_*``): a
 ``weight_norm``'s ``parametrizations.weight.original0`` / ``original1``
 keys, which are the port's own names, so a file loads with
 ``load_state_dict(strict=True)``.  Safetensors files are read and written
-by the port's ``safetensors_io``.
+by the port's ``safetensors_io``.  ``load_state_dict`` also reads a
+TorchScript archive (the published ECAPA2 checkpoint is one); the SPKV
+task's checkpoint slot and SQUIM's loader read through it.
 
 The port never downloads or uploads: a name that is not a local file or
 directory, and ``push_eben_generator_to_hub``, raise.
@@ -15,6 +17,8 @@ directory, and ``push_eben_generator_to_hub``, raise.
 from __future__ import annotations
 
 import json
+import pickle
+import zipfile
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
@@ -34,6 +38,7 @@ __all__ = [
     "push_eben_generator_to_hub",
     "push_folder_to_hub",
     "load_state_dict",
+    "is_torchscript_archive",
     "infer_eben_hparams",
     "infer_eben_discriminator_hparams",
 ]
@@ -57,14 +62,38 @@ def _resolve_weights(path: PathLike) -> Path:
         "local path and never downloads (a hub repo id needs the network)")
 
 
+def is_torchscript_archive(path: PathLike) -> bool:
+    """Whether ``path`` is a ``torch.jit.save`` archive: a zip whose top
+    folder holds ``constants.pkl`` (a ``torch.save`` zip has ``data.pkl``
+    and no constants), the test ``torch.load`` makes itself."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as archive:
+        return any(name.count("/") == 1 and name.endswith("/constants.pkl") for name in archive.namelist())
+
+
 def load_state_dict(path: PathLike) -> Dict[str, torch.Tensor]:
-    """A ``.safetensors`` file, or a torch ``.bin`` / ``.pt`` state dict (read
-    with ``weights_only=True``, unwrapped from a ``{"state_dict": ...}``)."""
+    """A ``.safetensors`` file; a TorchScript archive (its module's
+    ``state_dict()``, read by ``torch.jit.load``); or a torch ``.bin`` /
+    ``.pt`` state dict (read with ``weights_only=True``, unwrapped from a
+    ``{"state_dict": ...}``).  A pickled eager module, which only
+    ``weights_only=False`` would unpickle, is refused: the port does not
+    unpickle code."""
     if str(path).endswith(".safetensors"):
         return safetensors_io.load_file(path)
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if is_torchscript_archive(path):
+        return {k: v.detach() for k, v in torch.jit.load(str(path), map_location="cpu").state_dict().items()}
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(
+            f"{path}: holds pickled Python objects (an eager module?), not a state dict or a TorchScript "
+            "archive; the port reads weights with torch.load(weights_only=True) and does not unpickle code: "
+            "save module.state_dict() or torch.jit.save the module") from e
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
+    if not isinstance(obj, dict):
+        raise TypeError(f"{path}: expected a state dict, got {type(obj).__name__}")
     return dict(obj)
 
 

@@ -16,6 +16,8 @@
   does not import ``transformers``).  Conv and dense weights are already
   the torch layout; the EMA codebooks (``embed_sum`` / ``cluster_usage``)
   become embeddings, and the RVQ's 1x1 conv projections dense weights.
+  ``mimi_state_dict_to_hf`` and ``mimi_config_to_hf`` are their inverses,
+  which write the published layout without ``transformers``.
 
 Both refuse a key they do not consume, a key the model lacks, and a shape
 the model does not have, so a drifted skeleton cannot load silently.
@@ -23,14 +25,15 @@ the model does not have, so a drifted skeleton cannot load silently.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from vibravox_tpu_torch.models.mimi.mimi import MimiConfig, MimiModule
 
-__all__ = ["mimi_state_dict_from_jax", "mimi_state_dict_from_hf", "mimi_config_from_hf"]
+__all__ = ["mimi_state_dict_from_jax", "mimi_state_dict_from_hf", "mimi_config_from_hf", "mimi_state_dict_to_hf",
+           "mimi_config_to_hf"]
 
 
 def _checked(sd: Dict[str, np.ndarray], config: MimiConfig, source: str) -> Dict[str, torch.Tensor]:
@@ -105,17 +108,15 @@ def mimi_config_from_hf(cfg: Mapping[str, Any]) -> MimiConfig:
     )
 
 
-def mimi_state_dict_from_hf(state_dict: Mapping[str, Any], config: MimiConfig) -> Dict[str, torch.Tensor]:
-    """HF ``MimiModel.state_dict()`` (numpy or CPU tensors) -> state dict
-    for ``MimiModule(config)``.  A codebook is ``embed_sum`` over
-    ``cluster_usage`` clamped to HF's epsilon, 1e-5."""
-    hf = {k: np.asarray(v) for k, v in state_dict.items()}
-    sd: Dict[str, np.ndarray] = {}
+def _hf_pairs(config: MimiConfig) -> List[Tuple[str, str]]:
+    """(ours, HF's) for every tensor that maps one to one: the convs, the
+    transformers' linears, LayerNorms and layer scales."""
+    pairs: List[Tuple[str, str]] = []
 
     def take(ours: str, theirs: str, bias: bool = True) -> None:
-        sd[f"{ours}.weight"] = hf.pop(f"{theirs}.weight")
+        pairs.append((f"{ours}.weight", f"{theirs}.weight"))
         if bias:
-            sd[f"{ours}.bias"] = hf.pop(f"{theirs}.bias")
+            pairs.append((f"{ours}.bias", f"{theirs}.bias"))
 
     n = len(config.ratios)
     # MimiEncoder's layers: 0 the stem, then per ratio [residual, ELU,
@@ -142,12 +143,26 @@ def mimi_state_dict_from_hf(state_dict: Mapping[str, Any], config: MimiConfig) -
                 take(f"{ours}.{a}", f"{theirs}.{b}", bias=False)
             take(f"{ours}.norm1", f"{theirs}.input_layernorm")
             take(f"{ours}.norm2", f"{theirs}.post_attention_layernorm")
-            sd[f"{ours}.layer_scale_1"] = hf.pop(f"{theirs}.self_attn_layer_scale.scale")
-            sd[f"{ours}.layer_scale_2"] = hf.pop(f"{theirs}.mlp_layer_scale.scale")
+            pairs.append((f"{ours}.layer_scale_1", f"{theirs}.self_attn_layer_scale.scale"))
+            pairs.append((f"{ours}.layer_scale_2", f"{theirs}.mlp_layer_scale.scale"))
     take("downsample", "downsample.conv", bias=False)
     take("upsample", "upsample.conv", bias=False)
-    for ours, theirs, n_q in (("semantic", "semantic_residual_vector_quantizer", 1),
-                              ("acoustic", "acoustic_residual_vector_quantizer", config.rvq_n_q - 1)):
+    return pairs
+
+
+def _hf_quantizers(config: MimiConfig) -> Tuple[Tuple[str, str, int], ...]:
+    """(ours, HF's, number of codebooks) for the two RVQs."""
+    return (("semantic", "semantic_residual_vector_quantizer", 1),
+            ("acoustic", "acoustic_residual_vector_quantizer", config.rvq_n_q - 1))
+
+
+def mimi_state_dict_from_hf(state_dict: Mapping[str, Any], config: MimiConfig) -> Dict[str, torch.Tensor]:
+    """HF ``MimiModel.state_dict()`` (numpy or CPU tensors) -> state dict
+    for ``MimiModule(config)``.  A codebook is ``embed_sum`` over
+    ``cluster_usage`` clamped to HF's epsilon, 1e-5."""
+    hf = {k: np.asarray(v) for k, v in state_dict.items()}
+    sd: Dict[str, np.ndarray] = {ours: hf.pop(theirs) for ours, theirs in _hf_pairs(config)}
+    for ours, theirs, n_q in _hf_quantizers(config):
         books = []
         for i in range(n_q):
             book = f"quantizer.{theirs}.layers.{i}.codebook"
@@ -160,3 +175,47 @@ def mimi_state_dict_from_hf(state_dict: Mapping[str, Any], config: MimiConfig) -
     if hf:
         raise ValueError(f"HF Mimi state dict: unconsumed keys {sorted(hf)[:20]}")
     return _checked(sd, config, "HF Mimi state dict")
+
+
+def mimi_state_dict_to_hf(state_dict: Mapping[str, torch.Tensor], config: MimiConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`mimi_state_dict_from_hf`: a ``MimiModule``
+    state dict in HF ``MimiModel``'s keys, on the CPU.  Each codebook is
+    written as HF's EMA buffers: ``cluster_usage`` a power of two per code
+    (0.5, 1, 2, 4 in turn), ``embed_sum`` the codebook times it, so the
+    division ``mimi_state_dict_from_hf`` makes gives the codebook back
+    exactly; ``initialized`` is 1."""
+    ours = dict(_checked({k: v.detach().cpu().numpy() for k, v in state_dict.items()}, config,
+                         "Mimi state dict"))
+    hf = {theirs: ours.pop(mine) for mine, theirs in _hf_pairs(config)}
+    usage = 2.0 ** (torch.arange(config.rvq_codebook_size) % 4 - 1).float()
+    for mine, theirs, n_q in _hf_quantizers(config):
+        books = ours.pop(f"quantizer.{mine}.codebooks")
+        for i in range(n_q):
+            book = f"quantizer.{theirs}.layers.{i}.codebook"
+            hf[f"{book}.initialized"] = torch.ones(1)
+            hf[f"{book}.cluster_usage"] = usage.clone()
+            hf[f"{book}.embed_sum"] = books[i] * usage[:, None]
+        for proj in ("input_proj", "output_proj"):
+            hf[f"quantizer.{theirs}.{proj}.weight"] = ours.pop(f"quantizer.{mine}.{proj}.weight")[:, :, None]
+    if ours:
+        raise ValueError(f"Mimi state dict: keys without an HF name {sorted(ours)[:20]}")
+    return hf
+
+
+def mimi_config_to_hf(config: MimiConfig) -> Dict[str, Any]:
+    """The HF ``config.json`` (a dict) of ``config``: the inverse of
+    :func:`mimi_config_from_hf`, with the fields this model fixes (kernel
+    sizes, one residual layer per ratio, causal convs, one semantic
+    codebook, a depthwise upsample) written as the model has them."""
+    return {
+        "model_type": "mimi", "architectures": ["MimiModel"], "sampling_rate": config.sample_rate,
+        "audio_channels": 1, "hidden_size": config.dimension, "num_filters": config.n_filters,
+        "num_residual_layers": 1, "upsampling_ratios": list(config.ratios), "kernel_size": 7,
+        "last_kernel_size": 3, "residual_kernel_size": 3, "dilation_growth_rate": 2, "use_causal_conv": True,
+        "compress": config.downsample, "codebook_size": config.rvq_codebook_size,
+        "codebook_dim": config.rvq_dimension, "vector_quantization_hidden_dimension": config.rvq_dimension,
+        "num_quantizers": config.rvq_n_q, "num_semantic_quantizers": 1, "upsample_groups": config.dimension,
+        "num_hidden_layers": config.transformer_layers, "num_attention_heads": config.transformer_heads,
+        "num_key_value_heads": config.transformer_heads, "head_dim": config.dimension // config.transformer_heads,
+        "intermediate_size": config.transformer_ff, "sliding_window": config.sliding_window, "norm_eps": 1e-5,
+    }

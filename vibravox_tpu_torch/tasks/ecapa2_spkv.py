@@ -12,7 +12,9 @@ trials of every rank, gathered.
 The embedder is any module ``(B, T) waveform -> (B, D)``: ``ECAPA2`` by
 default, ``ECAPATDNN`` through the config.  ``checkpoint_path`` (or
 ``$VIBRAVOX_ECAPA2_CKPT``) names a torch state dict in the embedder's key
-layout (for ECAPA2 the JAX package's converter layout), loaded strictly;
+layout (for ECAPA2 the JAX package's converter layout), or a TorchScript
+archive of such a module (the published ``ecapa2.pt`` is one), read by
+``models/hub.py::load_state_dict`` and loaded strictly;
 without one the weights are random from the trainer's seed, made on the
 CPU, so a seed gives the same embedder on any device.
 """
@@ -35,6 +37,7 @@ from vibravox_tpu_torch.metrics.verification import (
     equal_error_rate,
     minimum_detection_cost,
 )
+from vibravox_tpu_torch.models.hub import load_state_dict
 from vibravox_tpu_torch.parallel.mesh import gather_objects
 
 __all__ = ["SPKVTask", "SPKVState"]
@@ -94,7 +97,7 @@ class SPKVTask:
         """The checkpoint's weights, or random ones from ``seed``."""
         path = self.checkpoint_path or os.environ.get("VIBRAVOX_ECAPA2_CKPT")
         if path:
-            sd = torch.load(path, map_location="cpu", weights_only=True)
+            sd = load_state_dict(path)
         else:
             sd = _random_state_dict(self.embedder, seed)
         self.embedder.load_state_dict(sd, strict=True)
