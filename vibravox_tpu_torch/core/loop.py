@@ -237,7 +237,6 @@ class Trainer:
                 self.data_wait_seconds.append(t0 - t_wait)
                 timer.start()
                 self.state, logs = self.parallel.train_step(self.state, batch)
-                timer.stop()
                 if self.sync_every_step:
                     self._sync(device)
                     self.step_seconds.append(time.perf_counter() - t0)
@@ -267,6 +266,7 @@ class Trainer:
                 profiler_trace.__exit__(None, None, None)
                 profiler_trace = None
             self._sync(device)
+            timer.stop()
             # end-of-epoch barrier: the final step's logs and the state
             # itself, before a save can overwrite `last`
             if anomaly is None and self.failure_guard is not None and logs is not None:

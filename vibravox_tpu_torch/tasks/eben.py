@@ -55,6 +55,7 @@ import torch
 from torch import nn
 
 from vibravox_tpu_torch.core.optim import accumulate, materialise, step_counts_to_cpu
+from vibravox_tpu_torch.core.profiler import span
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
@@ -263,70 +264,80 @@ class EBENTask:
         (B, T, 1) batches: balanced generator update, gated discriminator
         update.  Updates ``state`` in place and returns it with the logs
         (0-dim tensors, the JAX step's keys)."""
-        with strict_float32():
+        with span("eben.train_step"), strict_float32():
             return self._train_step(state, batch)
 
     def _train_step(self, state, batch):
+        # phases (``core/profiler.py::span``): forward, balancing, backward and
+        # optimizer of the generator, then of the discriminator
         gen = self.generator
-        corrupted = gen.cut_to_valid_length(batch["audio_body_conducted"].to(self.device))
-        reference = gen.cut_to_valid_length(batch["audio_airborne"].to(self.device))
-        corrupted = corrupted.transpose(1, 2).contiguous()  # NCW (B, 1, T)
-        reference = reference.transpose(1, 2).contiguous()
-        if self.compute_dtype is not None:
-            dtype = getattr(torch, self.compute_dtype)
-            corrupted, reference = corrupted.to(dtype), reference.to(dtype)
-        decomposed_reference = gen.pqmf.analysis(reference)
+        names = self.atomic_loss_names
         logs: Dict[str, torch.Tensor] = {}
 
         # ---- generator: balanced update, discriminator frozen ----
-        names = self.atomic_loss_names
         self.discriminator.requires_grad_(False)
         try:
-            enhanced, decomposed = gen.tail(*gen.front(corrupted))
-            atomic = self._generator_atomic_losses(enhanced, reference, decomposed, decomposed_reference)
-            values = [atomic[n] for n in names]
-            lambdas, norms_ema = self._balancing(state, values)
-            total = sum(lambdas[i] * v for i, v in enumerate(values))
-            state.generator_optimizer.zero_grad(set_to_none=True)
-            total.backward()
-            sync_gradients(list(gen.parameters()))
-            if self.track_grad_norm == 2:
-                logs["train/generator/grad_2.0_norm_total"] = _grad_norm(p.grad for p in gen.parameters())
-            state.generator_optimizer.step()
+            with span("eben.generator.forward"):
+                corrupted = gen.cut_to_valid_length(batch["audio_body_conducted"].to(self.device))
+                reference = gen.cut_to_valid_length(batch["audio_airborne"].to(self.device))
+                corrupted = corrupted.transpose(1, 2).contiguous()  # NCW (B, 1, T)
+                reference = reference.transpose(1, 2).contiguous()
+                if self.compute_dtype is not None:
+                    dtype = getattr(torch, self.compute_dtype)
+                    corrupted, reference = corrupted.to(dtype), reference.to(dtype)
+                decomposed_reference = gen.pqmf.analysis(reference)
+                enhanced, decomposed = gen.tail(*gen.front(corrupted))
+                atomic = self._generator_atomic_losses(enhanced, reference, decomposed, decomposed_reference)
+                values = [atomic[n] for n in names]
+                generator_logs = {f"train/generator/{k}": v.detach() for k, v in atomic.items()}
+            with span("eben.generator.balancing"):
+                lambdas, norms_ema = self._balancing(state, values)
+                total = sum(lambdas[i] * v for i, v in enumerate(values))
+                generator_logs["train/generator/backprop_loss"] = total.detach()
+            with span("eben.generator.backward"):
+                state.generator_optimizer.zero_grad(set_to_none=True)
+                total.backward()
+                sync_gradients(list(gen.parameters()))
+                if self.track_grad_norm == 2:
+                    logs["train/generator/grad_2.0_norm_total"] = _grad_norm(p.grad for p in gen.parameters())
+            with span("eben.generator.optimizer"):
+                state.generator_optimizer.step()
         finally:
             self.discriminator.requires_grad_(True)
-        for k, v in atomic.items():
-            logs[f"train/generator/{k}"] = v.detach()
-        logs["train/generator/backprop_loss"] = total.detach()
+        logs.update(generator_logs)
 
         # ---- discriminator: Bernoulli-gated hinge step ----
         if self.adversarial_loss_fn is not None:
-            gate_open = bool(torch.rand((), generator=state.gate) < self.update_discriminator_ratio)
-            track = self.track_grad_norm == 2
-            with torch.set_grad_enabled(gate_open or track):
-                reference_emb, enhanced_emb = self._discriminator_embeddings(
-                    enhanced, reference, decomposed, decomposed_reference)
-                real = self.adversarial_loss_fn(reference_emb, 1).float()
-                fake = self.adversarial_loss_fn(enhanced_emb, -1).float()
-                disc_total = real + fake
+            with span("eben.discriminator.forward"):
+                gate_open = bool(torch.rand((), generator=state.gate) < self.update_discriminator_ratio)
+                track = self.track_grad_norm == 2
+                with torch.set_grad_enabled(gate_open or track):
+                    reference_emb, enhanced_emb = self._discriminator_embeddings(
+                        enhanced, reference, decomposed, decomposed_reference)
+                    real = self.adversarial_loss_fn(reference_emb, 1).float()
+                    fake = self.adversarial_loss_fn(enhanced_emb, -1).float()
+                    disc_total = real + fake
+                logs["train/discriminator/real_loss"] = real.detach()
+                logs["train/discriminator/fake_loss"] = fake.detach()
+                logs["train/discriminator/backprop_loss"] = disc_total.detach()
             disc_params = list(self.discriminator.parameters())
             if gate_open:
-                state.discriminator_optimizer.zero_grad(set_to_none=True)
-                disc_total.backward()
-                sync_gradients(disc_params)
-                grads = [p.grad.clone() if track and p.grad is not None else p.grad for p in disc_params]
-                state.discriminator_optimizer.step()
+                with span("eben.discriminator.backward"):
+                    state.discriminator_optimizer.zero_grad(set_to_none=True)
+                    disc_total.backward()
+                    sync_gradients(disc_params)
+                    if track:
+                        logs["train/discriminator/grad_2.0_norm_total"] = _grad_norm(p.grad for p in disc_params)
+                with span("eben.discriminator.optimizer"):
+                    state.discriminator_optimizer.step()
             elif track:  # the JAX step logs the norm of the gradient it gated away
-                grads = torch.autograd.grad(disc_total, disc_params, allow_unused=True)
-                grads = [g for g in grads if g is not None]
-                if grads:
-                    grads = list(data_mean(torch.cat([g.reshape(-1) for g in grads])).split(
-                        [g.numel() for g in grads]))
-            logs["train/discriminator/real_loss"] = real.detach()
-            logs["train/discriminator/fake_loss"] = fake.detach()
-            logs["train/discriminator/backprop_loss"] = disc_total.detach()
-            if track:
-                logs["train/discriminator/grad_2.0_norm_total"] = _grad_norm(grads)
+                with span("eben.discriminator.backward"):
+                    grads = torch.autograd.grad(disc_total, disc_params, allow_unused=True)
+                    grads = [g for g in grads if g is not None]
+                    if grads:
+                        grads = list(data_mean(torch.cat([g.reshape(-1) for g in grads])).split(
+                            [g.numel() for g in grads]))
+                    logs["train/discriminator/grad_2.0_norm_total"] = _grad_norm(grads)
 
         state.step += 1
         state.atomic_norms_ema = norms_ema

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from vibravox_tpu_torch.core.optim import accumulate, materialise, step_counts_to_cpu
+from vibravox_tpu_torch.core.profiler import span
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
 from vibravox_tpu_torch.ops.ctc import ctc_loss
@@ -143,16 +144,20 @@ class Wav2Vec2STPTask:
                    ) -> Tuple[STPTrainState, Dict[str, torch.Tensor]]:
         """One Adam step on ``{"audio": (B, T), "phonemes_ids": (B, N)}``.
         Updates ``state`` in place and returns it with ``train/ctc_loss``."""
-        with strict_float32():
-            generator = step_generator(state.seed, state.step, self.device)
-            logits = self._forward(batch["audio"], train=True, generator=generator)
-            loss = self._ctc_loss(logits, batch["phonemes_ids"].to(self.device))
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            sync_gradients(list(state.model.parameters()))
-            state.optimizer.step()
+        with span("stp.train_step"), strict_float32():
+            with span("stp.forward"):
+                generator = step_generator(state.seed, state.step, self.device)
+                logits = self._forward(batch["audio"], train=True, generator=generator)
+                loss = self._ctc_loss(logits, batch["phonemes_ids"].to(self.device))
+                logs = {"train/ctc_loss": loss.detach()}
+            with span("stp.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                sync_gradients(list(state.model.parameters()))
+            with span("stp.optimizer"):
+                state.optimizer.step()
         state.step += 1
-        return state, {"train/ctc_loss": loss.detach()}
+        return state, logs
 
     @torch.no_grad()
     def eval_step(self, state: STPTrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
