@@ -6,7 +6,7 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
 (one JSON line each; any failure raises and exits non-zero):
 
 1. device: the card's name and power limit as nvidia-smi reports them;
-2. build: every kernel source (K1; K2; K3 and K4), one nvcc each, all
+2. build: every kernel source (K1; K2; K3 and K4; C1), one nvcc each, all
    started together, with the nvcc time, the ptxas resource report and the
    HMMA (tensor-core), LDSM (ldmatrix) and FFMA instruction counts of each
    kernel; K1's kernel must have HMMA and LDSM in both types; K2's bf16
@@ -14,6 +14,7 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
    (unit_backward_tf32) HMMA, its float32 recompute kernels
    (unit_forward_fma) FFMA and no HMMA, and the float32 FMA kernels they
    replaced (unit_forward_kernel, unit_backward_kernel) may not be left;
+   C1's fprop, dgrad and wgrad kernels must have HMMA and LDSM;
 3. k1_parity: the fused residual stack (K1) against its plain PyTorch version
    at the serving shapes in float32 (atol 2e-5 of scale, TF32 off for the
    plain convolutions) and bfloat16 (2e-2 of scale), plus ragged T = 1001 and
@@ -45,21 +46,30 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
    where the reflect pad reflects more than once; K4 bit-equal over two
    runs; kernel, plain, library and bound times of whole wrapper calls, in
    turns;
-9. pad_short: the ``pad`` collate on 32 utterances under 1024 samples
+9. sgconv_parity: C1, the MelGAN discriminator's grouped stride-4
+   convolutions (kernel 41, padding 20, 4 groups) on their hand-written
+   kernel, conv_1 ... conv_4 at the train step's shapes, batch 32 and 64:
+   fprop, dgrad and wgrad through ``strided_group_conv``'s autograd
+   Function against an IEEE float32 convolution of the same bf16 values and
+   a float64 one on two batch rows (y and dx within 4.5e-3 of scale, dW
+   1e-4), dgrad and wgrad bit-equal twice; ms a call of cuDNN's bf16 call
+   (first), the kernel and the plain twin, each beside its bound; then the
+   sums a train step (``sgconv_step``);
+10. pad_short: the ``pad`` collate on 32 utterances under 1024 samples
    (T = 1024, 992 after the generator's cut) through the full task's
    generator and its STFT loss, forward and backward, on the card against
    the CPU: K1, K2, K3, K4 launched, the 2048-point resolution at
    T <= fft / 2 (the discriminator needs about 3000 samples, so the whole
    train step does not take such a batch);
-10. train_parity: one seeded float32 train step at small sizes on the card
+11. train_parity: one seeded float32 train step at small sizes on the card
     (K1-K4) against the same step on the CPU (the plain versions);
-11. train: the training path.  ``Trainer.fit`` of the full ``eben.yaml``
+12. train: the training path.  ``Trainer.fit`` of the full ``eben.yaml``
     task at batch 32 on 2.5 s synthetic crops, bfloat16; the counts are
     reset after a warm-up fit and must equal 6 launches per step for each
-    of K1-K4 over the timed fit;
-12. train_profile: the untraced train-step wall, its device time by kernel
+    of K1-K4 and 32 C1 calls per step over the timed fit;
+13. train_profile: the untraced train-step wall, its device time by kernel
     kind from a CUDA-only trace, and the idle share;
-13. eval_parity: the full task's float32 eval step on the first batch of
+14. eval_parity: the full task's float32 eval step on the first batch of
     the CLI's test loader (batch 1, a centred 2.5 s crop) and, as an extra
     shape, on one whole 5.7 s synthetic test utterance, on the card
     against the CPU (logs 1e-4 relative, enhanced audio 1e-4 of scale), K1
@@ -67,7 +77,7 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     plain versions at the shapes the CLI batch's forward ran, and K1 at the
     whole utterance's (T no multiple of K1's tile), with times and K1's
     launch configuration (``eval_k1`` and ``eval_k3`` lines);
-14. augment: on the host, at one torch thread as in a loader worker, the
+15. augment: on the host, at one torch thread as in a loader worker, the
     augmentation's worst case for one batch of 32 x 40000 samples and its
     airborne pair: every transform fires, at the slowest pitch step and
     speed factor (each step and factor timed once first), and the peak host
@@ -76,21 +86,21 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     banded forms side by side (``resample_forms``): on the host at the
     speed factors, STOI's 16 -> 10 kHz and pitch step -3, on the card at
     48 -> 16 kHz, agreeing within 1e-6 of scale;
-15. loader: the published train loaders (``bwe`` with ``light``,
+16. loader: the published train loaders (``bwe`` with ``light``,
     ``noisybwe`` with ``aggressive``, four workers) as the CLI composes
     them, over 32 batches of the synthetic source: the batches a second
     in steady state against the train phase's step, and 16 batches split
     into the source's items and the collate with its augmentation;
-16. npz: the synthetic source written to a temporary directory of npz
+17. npz: the synthetic source written to a temporary directory of npz
     utterances; the data module over it (``light`` augmentation, two
     workers) gives the synthetic source's train, validation and test
     batches byte for byte;
-17. melgan_multiscales: ``MelganMultiScalesDiscriminator(16000, scales=3)``
+18. melgan_multiscales: ``MelganMultiScalesDiscriminator(16000, scales=3)``
     at full width on b4 x 2.5 s, float32 under ``strict_float32``, card
     against CPU: every scale's resampled input and embeddings within 1e-4
     of scale, the audio gradient through the resamplers within 1e-3 of its
     norm;
-18. int8_disc: the opt-in int8 discriminator (``VIBRAVOX_INT8_DISC=1``).
+19. int8_disc: the opt-in int8 discriminator (``VIBRAVOX_INT8_DISC=1``).
     One eben.yaml bf16 b32 train step with the flag against one without,
     in turns (finite losses and gradient norms, step ms); then at every
     int8 conv shape that step ran at batch 32 (the published EBEN
@@ -99,53 +109,53 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     and to the CPU's int32 twin on its first rows, and its times beside
     cuDNN's bf16 conv (``int8_conv`` lines), with the card's name and
     power limit;
-19. cli: this slice's main path.  ``vibravox_tpu_torch.run.main`` with
+20. cli: this slice's main path.  ``vibravox_tpu_torch.run.main`` with
     ``lightning_datamodule=bwe lightning_module=eben callbacks=bwe_checkpoint``
     and the published default ``logging: tensorboard``, whose event file is
     read back (``core/logging.py::read_events``, every checksum checked): its
     scalars equal the trainer's step by step, train and validation among
     them, and its audio records are 16 kHz WAVs; the synthetic source (64 utterances) with the published
     ``light`` augmentation, two epochs, four validation and four test
-    batches, in a temporary run_dir: the K1-K4 launches of fit and of
+    batches, in a temporary run_dir: the K1-K4 and C1 launches of fit and of
     test("last") are asserted (test: K1 and K3 only), with the fit's wall,
     each step's data wait against its time, the test's seconds per batch
     (the eval step on the card, the host metrics, STOI) and the test
     metrics; ``last``, ``index.json`` and the top-2 checkpoints must exist;
     a second run with ``max_epochs=3`` must resume at epoch 2, its Adam
     step counts on the CPU, its train steps timed against the first run's;
-20. cli_noisybwe: ``run.main`` with ``lightning_datamodule=noisybwe
+21. cli_noisybwe: ``run.main`` with ``lightning_datamodule=noisybwe
     lightning_module=eben callbacks=bwe_checkpoint logging=csv`` on the
     synthetic source (64 utterances) with its published ``aggressive``
     augmentation, fit two epochs then test("last"), four batches of each
-    of the ``synthetic`` and ``real`` loaders: K1-K4 launches asserted, the
+    of the ``synthetic`` and ``real`` loaders: K1-K4 and C1 launches asserted, the
     real loader's batches reference-free (no airborne key, no losses, no
     metrics), each step's data wait against its time;
-21. stp_parity: the STP slice (wav2vec2-CTC, no hand-written kernel on its
+22. stp_parity: the STP slice (wav2vec2-CTC, no hand-written kernel on its
     path) in float32 under ``strict_float32``: the full-width base model
     (seed 0) in eval on 2 x 48000 samples, card against CPU (1e-4 of
     scale); one train step at hidden 256 / 4 layers with the random parts
     off (loss 1e-4 relative, parameters within 1e-2 of the update); the
     CTC loss at the recipe's shapes (value 1e-5 relative, each row's
     gradient within 1e-5 + 1e-6 x its loss);
-22. stp_train / stp_profile: ``Trainer.fit`` of the published STP task
+23. stp_train / stp_profile: ``Trainer.fit`` of the published STP task
     (the base model through the from_pretrained config, reading a local
     checkpoint written from seed 0) on the synthetic ``STPDataModule`` at
     batch 8, bf16-mixed, 28 synchronised steps: step times, audio-s/s,
     padded lengths, data waits, peak memory, model FLOPs and their share of
     the bf16 peak; then a CUDA-only trace of 5 steps by kernel kind, the
     idle share, and the positional conv alone; no K1-K4 launch;
-23. cli_stp: ``run.main`` with ``lightning_datamodule=stp
+24. cli_stp: ``run.main`` with ``lightning_datamodule=stp
     lightning_module=wav2vec2_for_stp callbacks=stp_checkpoint
     logging=csv`` on the synthetic source, two epochs of two steps, then
     test("last"), then a resumed third epoch: finite ``test/ctc_loss`` and
     ``test/char_error_rate``, the fit's wall, the test seconds per batch
     split into the eval step and the host decode + CER;
-24. scripts: ``push_dis_to_hub`` on phase ``cli``'s checkpoint and
+25. scripts: ``push_dis_to_hub`` on phase ``cli``'s checkpoint and
     ``upload_phonemizer_to_hub`` on phase ``cli_stp``'s, each export loaded
     back on the card bit-equal; ``test_all_phonemizers`` on the phonemizer
     export (six sensors, two synthetic utterances each, on the card);
     ``sweep --dry-run`` over the three published tables;
-25. spkv_parity: the SPKV slice in float32 (IEEE): the full-width ECAPA2
+26. spkv_parity: the SPKV slice in float32 (IEEE): the full-width ECAPA2
     and ECAPA-TDNN at its default width (seed 0, BatchNorms randomised) on
     2 x 48000 samples of synthetic speech, card against CPU (log-mel
     features within 1e-3 on the bins whose power is at least 1e-6 of their
@@ -154,12 +164,12 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     against its plain version at fft 512 / hop 160 / win 400 at (32, 48000)
     and at a ragged batch-1 trial, with kernel, plain, library and bound
     times of whole wrapper calls, in turns;
-26. spkv_embed: bench.py's spkv regime, the full-width ECAPA2 on batches of
+27. spkv_embed: bench.py's spkv regime, the full-width ECAPA2 on batches of
     32 x 3 s, 3 warm-up and 20 synchronised batches, bf16 trunk and
     float32: ms a batch, audio-s/s, peak memory, model FLOPs and their
     share of the peak, K3 once a batch and K1, K2, K4 never; a CUDA-only
     trace of 5 batches by kernel kind and the idle share;
-27. cli_spkv: ``run.main`` with ``lightning_datamodule=spkv
+28. cli_spkv: ``run.main`` with ``lightning_datamodule=spkv
     lightning_module=ecapa2 logging=csv`` on the synthetic source (120
     trials at batch 1, one loader worker) with the full-width embedder
     from a seed-0 state dict (``checkpoint_path``), then again with
@@ -167,7 +177,7 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     finite EER, threshold, minDCF and distance statistics, K3 twice a trial
     and K1, K2, K4 never, the test's seconds per trial split into the two
     embedder forwards and the host's scoring;
-28. mimi_parity: the regressive-Mimi slice (no hand-written kernel on its
+29. mimi_parity: the regressive-Mimi slice (no hand-written kernel on its
     path) in float32 (IEEE): the published ``MimiConfig()`` at full width
     (seed 0) on b2 x 2 s of synthetic speech, card against CPU: latents
     within 1e-4 of scale, the codes' agreement by stage with every flip a
@@ -175,23 +185,23 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     1e-4 relative), the decode of the CPU's codes and ``decode_latent`` on
     the rows whose codes all agree within 1e-3 of scale; the bf16 codec
     within 0.1 of scale of its float32;
-29. mimi_train: bench.py's mimi regime, ``RegressiveMimiTask`` on the
+30. mimi_train: bench.py's mimi regime, ``RegressiveMimiTask`` on the
     full-width bf16 codec, batches of 32 x 2 s, 3 warm-up and 20
     synchronised steps: step ms (median, p10-p90), audio-s/s, peak memory,
     FLOPs over the bf16 peak, the loss falling on the fixed batch, the
     decoder side, quantizer and frozen copy bit-equal after the steps, no
     K1-K4 launch; a CUDA-only trace of 5 steps by kernel kind and the idle
     share;
-30. codec: bench.py's codec regime, ``encode_to_latent`` + ``decode_latent``
+31. codec: bench.py's codec regime, ``encode_to_latent`` + ``decode_latent``
     of 32 x 2 s in bf16, with the same figures;
-31. cli_mimi: ``run.main`` with ``lightning_datamodule=bwe
+32. cli_mimi: ``run.main`` with ``lightning_datamodule=bwe
     lightning_module=regressive_mimi sample_rate=24000
     lightning_datamodule.batch_size=16 logging=csv callbacks=bwe_checkpoint``
     on 32 synthetic utterances with the ``light`` augmentation: fit two
     epochs, test("last") (finite STOI and SI-SDR), a resumed third epoch;
     the fit's wall and the test's seconds per batch split into the eval
     step and the host SE metrics;
-32. squim_parity: the SQUIM networks (no hand-written kernel on their
+33. squim_parity: the SQUIM networks (no hand-written kernel on their
     path) at full width, ``squim_objective_base()`` and
     ``squim_subjective_base()`` (seed 0, norms, PReLU slopes and alpha
     randomised), written as torchaudio-schema state dicts and loaded on the
@@ -199,44 +209,44 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     card against CPU in IEEE float32 (scores and MOS within 1e-4 of
     scale), and the objective's deviation with cuDNN's RNNs left in TF32,
     reported;
-33. squim_eval: ``SEMetrics`` with SQUIM at the CLI's test batch (batch 1,
+34. squim_eval: ``SEMetrics`` with SQUIM at the CLI's test batch (batch 1,
     2.5 s), 3 warm-up and 20 synchronised calls split into the objective,
     the subjective and the rest; the objective alone at 32 x 2.5 s; FLOPs
     from the shapes, device time by kind, idle share and kernels a call;
-34. hub_enhance: the full-width EBEN generator saved by
+35. hub_enhance: the full-width EBEN generator saved by
     ``save_eben_generator`` and loaded on the card by
     ``eben_generator_from_pretrained`` (forward bit-equal), then
     ``scripts/eben_enhanced_vibravox.py`` on 8 synthetic test utterances
     on the card (each npz within 1e-5 of scale of the direct forward, K1
     six launches an utterance, seconds an utterance);
-35. cli_squim: the CLI's test of phases ``cli`` and ``cli_noisybwe``
+36. cli_squim: the CLI's test of phases ``cli`` and ``cli_noisybwe``
     again, on their ``last`` checkpoints, with ``VIBRAVOX_SQUIM_DIR``
     holding the full-width SQUIM weights: ``torchsquim_stoi`` in [0, 1]
     and ``noresqa_mos`` finite (on the noisy CLI's reference-free batches
     too), the K1-K4 launches equal to those phases' tests, the test
     seconds a batch split into SQUIM and the rest;
-36. dp_parity: this slice's main path, the parallel layer.  Two processes
+37. dp_parity: this slice's main path, the parallel layer.  Two processes
     share the card over gloo (NCCL refuses two ranks on one device) and
     run the full-width eben.yaml step through ``DataParallel`` on 16 rows
     each of a global batch of 32 x 2.5 s: in float32 with SGD it equals
     the one-process b32 step at train_parity's bars; then bf16 Adam steps
     at two ranks (step ms p10-p90, the gradient all-reduce's ms and bytes
-    a step, K1-K4 6 / 6 / 6 / 6 a step on each rank, counted in the
+    a step, K1-K4 6 / 6 / 6 / 6 and C1 32 a step on each rank, counted in the
     ranks); then ``DataParallel`` at world size 1 over NCCL against the
     plain step in one process, the wrapper's own ms;
-37. fsdp_tp: two gloo ranks on the card (gloo's CUDA collectives carry
+38. fsdp_tp: two gloo ranks on the card (gloo's CUDA collectives carry
     FSDP2's and DTensor's, checked on the H100): the full-width
     wav2vec2-base STP step (b8 x 3 s, bf16) through plain DP and with
     FSDP2, and the full-width Mimi step (b32 x 2 s, bf16) on a model axis
     of two, each against the one-process step at mimi_parity's bf16 bars
     (loss 1e-2, update 5e-2 of scale), each rank's peak memory and
     parameter bytes beside plain DP's;
-38. cli_dp: ``python -m torch.distributed.run --standalone
+39. cli_dp: ``python -m torch.distributed.run --standalone
     --nproc_per_node 1 -m vibravox_tpu_torch.run`` with the EBEN CLI and
     ``logging=csv`` (it reads the CSV's test metrics) over NCCL and the
     default ``trainer.mesh``: fit, test("last"), a resumed epoch and its
     test;
-39. weights_day: the port's weights-day runbook
+40. weights_day: the port's weights-day runbook
     (``scripts/weights_day.py --stage all --offline-dry-run``) on the card
     in a temporary cache: full-width donors in the published formats
     (EBEN's hub layout, an HF wav2vec2-base directory, ECAPA2 as a
@@ -246,13 +256,14 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
     (K3 twice a trial) and the other four parity configs composed and
     instantiated: each stage's wall and launches, the manifest's keys, the
     executed EER and minDCF, and the checkpoint variables put back;
-40. the ``kernels`` line (all four kernels), then the result line.
+41. the ``kernels`` line (all five kernels: K1-K4 and C1), then the
+    result line.
 
-A rank of phases 36-37 is ``python3 chip_smoke.py --worker <kind>`` with
+A rank of phases 37-38 is ``python3 chip_smoke.py --worker <kind>`` with
 the torchrun variables set (``run_workers``); a rank that fails or runs
 past its timeout stops every rank and fails the phase.
 
-Phases 3, 7 and 32 change PyTorch's precision settings, and only around the
+Phases 3, 7, 9 and 33 change PyTorch's precision settings, and only around the
 comparison; the other phases run the port as a user calls it.  Each trace
 is taken again, up to four times, until it records every launch of the
 hand-written kernels that its run made (``cuda_trace``).
@@ -314,9 +325,11 @@ from vibravox_tpu_torch.ops.pallas_stft import (
     plain_framed_dft_magnitude,
 )
 from vibravox_tpu_torch.ops import resample
+from vibravox_tpu_torch.ops import strided_group_conv as sgconv
 from vibravox_tpu_torch.ops.ctc import ctc_loss
 from vibravox_tpu_torch.ops.resample import KaiserResampler, bank_nbytes, design_band, design_kernel
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
+from vibravox_tpu_torch.ops.strided_group_conv import strided_group_conv
 from vibravox_tpu_torch.serving import EnhanceServer
 from vibravox_tpu_torch.tasks.ecapa2_spkv import SPKVTask
 from vibravox_tpu_torch.tasks.eben import EBENTask
@@ -409,6 +422,8 @@ def kernel_kind(name: str) -> str:
         return "K3 framed_dft_magnitude"
     if "framed_dft_backward" in name:  # both passes
         return "K4 framed_dft_backward"
+    if "strided_group_conv" in name:  # each entry point's two kernels
+        return "C1 strided_group_conv"
     if "ctc" in low:
         return "CTC"
     if "rnn" in low or "lstm" in low:
@@ -617,13 +632,26 @@ def check_k2_kernels(source: str, counts: dict) -> dict:
     return {**products, **recompute}
 
 
+def check_c1_kernels(source: str, counts: dict) -> None:
+    """Raises unless C1's fprop, dgrad and wgrad GEMM kernels (not the
+    weight layouts nor wgrad's sum) are built, each plan's with HMMA and
+    LDSM in its SASS."""
+    for p in SG_PASSES:
+        gemms = {k: v for k, v in counts.items() if f"strided_group_conv_{p}_kernel" in k}
+        if not gemms:
+            raise AssertionError(f"{source}: no {p} kernel in its SASS: {sorted(counts)}")
+        for k, v in gemms.items():
+            if not (v["HMMA"] and v["LDSM"]):
+                raise AssertionError(f"{source}: a {p} kernel lacks HMMA or LDSM: {k} {v}")
+
+
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together; the HMMA,
     LDSM and FFMA counts of each kernel.  K1's kernel must run on the
     tensor cores from ldmatrix fragments in both types (float32 in
     3xTF32), and its FMA kernel may not be left; K2's kernels as
     check_k2_kernels holds them, their float32 counts on a line of their
-    own."""
+    own; C1's as check_c1_kernels holds them."""
     t0 = time.perf_counter()
     infos = _build.build_all(_build.SOURCES)
     wall = time.perf_counter() - t0
@@ -638,6 +666,8 @@ def phase_build() -> None:
                                ("HMMA", "LDSM"))
         elif name == "fused_residual_bwd":
             emit({"phase": "build", "source": name, "float32_kernels": check_k2_kernels(name, counts)})
+        elif name == "strided_group_conv":
+            check_c1_kernels(name, counts)
 
 
 def k1_config(b: int, c: int, t: int, dtype: torch.dtype) -> dict:
@@ -1038,6 +1068,142 @@ def phase_k3_k4_parity() -> list:
     return rows
 
 
+# C1, the MelGAN discriminator's grouped stride-4 convolutions (kernel 41,
+# padding 20, 4 groups): conv_1 ... conv_4 as (name, C_in, C_out, T_in) of
+# the train step, T_in = ceil(TRAIN_T / 4^i)
+SG_LAYERS = tuple((f"conv_{i + 1}", c_in, c_out, -(-TRAIN_T // 4 ** i))
+                  for i, (c_in, c_out) in enumerate(((16, 64), (64, 256), (256, 1024), (1024, 1024))))
+# the bars of the gpu tests, of the reference's largest magnitude: y and dx
+# come back in bf16 (its rounding alone is up to 3.9e-3 of a value), dW is
+# summed and returned in float32
+SG_TOL = {"fprop": 4.5e-3, "dgrad": 4.5e-3, "wgrad": 1e-4}
+SG_ROWS_F64 = 2
+# calls of each pass a train step at each batch: the generator's phase runs
+# the four layers at batch 32 on enhanced and reference (fprop twice) and
+# their data gradients for the two balancing norms and its backward (three
+# times); the discriminator's phase runs [reference | enhanced] at batch 64
+# (fprop, dgrad, wgrad once each)
+SG_CALLS_PER_STEP = {(TRAIN_B, "fprop"): 2, (TRAIN_B, "dgrad"): 3,
+                     (2 * TRAIN_B, "fprop"): 1, (2 * TRAIN_B, "dgrad"): 1, (2 * TRAIN_B, "wgrad"): 1}
+SG_PASSES = ("fprop", "dgrad", "wgrad")
+C1_PER_STEP = 4 * sum(SG_CALLS_PER_STEP.values())  # entry-point calls a train step: 32
+
+
+def sg_conv_backward(dy, x, w, mask):
+    """aten's convolution backward of the MelGAN geometry (cuDNN on the card)."""
+    return torch.ops.aten.convolution_backward(dy, x, w, None, [4], [20], [1], False, [0], 4, mask)
+
+
+def sg_reference(x, w, bias, dy) -> dict:
+    """(y, dx, dW) of the plain convolution in x's type."""
+    return {"fprop": F.conv1d(x, w, bias, 4, 20, 1, 4),
+            "dgrad": sg_conv_backward(dy, x, w, [True, False, False])[0],
+            "wgrad": sg_conv_backward(dy, x, w, [False, True, False])[1]}
+
+
+def sg_through_wrapper(x, w, bias, dy) -> dict:
+    """(y, dx, dW) through ``strided_group_conv``'s autograd Function: one
+    fprop, dgrad and wgrad launch."""
+    xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    y = strided_group_conv(xr, wr, bias)
+    dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+    return {"fprop": y.detach(), "dgrad": dx, "wgrad": dw}
+
+
+def sg_row(name: str, c_in: int, c_out: int, t: int, b: int, smi: str) -> list:
+    """One layer at one batch: each pass of C1 through the wrapper against
+    an IEEE float32 convolution of the same bf16 values and, on
+    SG_ROWS_F64 batch rows, a float64 one, at SG_TOL; cuDNN's bf16 call and
+    the plain twin (``plain_strided_group_conv``, a stride-1 grouped conv
+    on cuDNN) beside it; dgrad and wgrad bit-equal twice; then ms a call by
+    CUDA events of cuDNN's bf16 call (first: the "before"), the kernel's
+    entry point (its weight layout and wgrad's sum pass included) and the
+    twin (its backward alone for dgrad and wgrad), and the bound: the larger
+    of the operations at the bf16 peak and the bytes (x, y and the float32
+    weight once each) at HBM_BYTES_PER_S.  One row a pass."""
+    gen = torch.Generator(device="cuda").manual_seed(c_in * 1000 + b)
+    x = (torch.randn(b, c_in, t, device="cuda", generator=gen) * 0.5).bfloat16()
+    w = torch.randn(c_out, c_in // 4, 41, device="cuda", generator=gen) / math.sqrt(41 * c_in / 4)
+    bias = torch.randn(c_out, device="cuda", generator=gen) * 0.1
+    t_out = -(-t // 4)
+    dy = (torch.randn(b, c_out, t_out, device="cuda", generator=gen) * 0.1).bfloat16()
+    wb, bb = w.bfloat16(), bias.bfloat16()
+    launches0 = strided_group_conv.launches
+    got = sg_through_wrapper(x, w, bias, dy)
+    rows = slice(0, SG_ROWS_F64)
+    got64 = sg_through_wrapper(x[rows].contiguous(), w, bias, dy[rows].contiguous())
+    launches = strided_group_conv.launches - launches0
+    with torch.no_grad():
+        again = {"dgrad": sgconv._dgrad(dy, w, x.shape), "wgrad": sgconv._wgrad(x, dy, w.shape)}
+        lib = sg_reference(x, wb, bb, dy)
+        twin = sgconv.plain_strided_group_conv(x, w, bias)
+        with strict_float32():
+            ref = sg_reference(x.float(), wb.float(), bias, dy.float())
+        ref64 = sg_reference(x[rows].double(), wb.double(), bias.double(), dy[rows].double())
+
+    flops = 2.0 * b * t_out * c_out * (c_in // 4) * 41
+    nbytes = 2 * x.numel() + 2 * b * c_out * t_out + 4 * w.numel()
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = bound(ops_ms, bytes_ms)
+    xr, wr = x.detach().requires_grad_(True), wb.detach().requires_grad_(True)
+    y_dgrad, y_wgrad = sgconv.plain_strided_group_conv(xr, wb), sgconv.plain_strided_group_conv(x, wr)
+    calls = {"library": {"fprop": lambda: F.conv1d(x, wb, bb, 4, 20, 1, 4),
+                         "dgrad": lambda: sg_conv_backward(dy, x, wb, [True, False, False]),
+                         "wgrad": lambda: sg_conv_backward(dy, x, wb, [False, True, False])},
+             "kernel": {"fprop": lambda: sgconv._fprop(x, w, bias),
+                        "dgrad": lambda: sgconv._dgrad(dy, w, x.shape),
+                        "wgrad": lambda: sgconv._wgrad(x, dy, w.shape)},
+             "plain": {"fprop": lambda: sgconv.plain_strided_group_conv(x, w, bias),
+                       "dgrad": lambda: torch.autograd.grad(y_dgrad, xr, dy, retain_graph=True),
+                       "wgrad": lambda: torch.autograd.grad(y_wgrad, wr, dy, retain_graph=True)}}
+    ms = {what: {p: cuda_ms(fns[p]) for p in SG_PASSES} for what, fns in calls.items()}
+    del y_dgrad, y_wgrad
+    out = []
+    for p in SG_PASSES:
+        err, err64 = rel_err(got[p], ref[p]), rel_err(got64[p], ref64[p])
+        row = {"phase": "sgconv_parity", "card": smi, "layer": name, "B": b, "C_in": c_in, "C_out": c_out,
+               "T_in": t, "T_out": t_out, "pass": p, "calls_per_step": SG_CALLS_PER_STEP.get((b, p), 0),
+               "kernel_ms": ms["kernel"][p], "plain_ms": ms["plain"][p], "library_ms": ms["library"][p],
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "kernel_tflops": flops / ms["kernel"][p] / 1e9,
+               "err_over_scale": err, "err_over_scale_f64": err64, "tol": SG_TOL[p],
+               "library_err_over_scale": rel_err(lib[p], ref[p]),
+               "bit_equal_twice": bool(torch.equal(got[p], again[p])) if p in again else None,
+               "wrapper_launches": launches}
+        if p == "fprop":
+            row["plain_err_over_scale"] = rel_err(twin, ref[p])
+        out.append(row)
+        emit(row)
+        if not (err <= SG_TOL[p] and err64 <= SG_TOL[p]) or got[p].shape != ref[p].shape:
+            raise AssertionError(f"C1's {p} differs from the plain convolution: {row}")
+        if row["bit_equal_twice"] is False:
+            raise AssertionError(f"C1's {p} is not bit-equal across two runs: {row}")
+    if launches != 6:
+        raise AssertionError(f"{launches} C1 launches for two forward and backward calls, not 6")
+    return out
+
+
+def phase_sgconv_parity(smi: str) -> list:
+    """C1 at the train step's shapes: ``sg_row`` for conv_1 ... conv_4 at
+    batch 32 and 64, then one line of the per-step sums
+    (SG_CALLS_PER_STEP)."""
+    rows = [r for b in (TRAIN_B, 2 * TRAIN_B) for layer in SG_LAYERS for r in sg_row(*layer, b, smi)]
+    emit({"phase": "sgconv_step", "card": smi, **sg_per_step(rows)})
+    return rows
+
+
+def sg_per_step(rows) -> dict:
+    """C1's kernel, plain-twin, library and bound ms a train step, whole and
+    by pass, each call weighted by SG_CALLS_PER_STEP."""
+    keys = (("kernel_ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"))
+    weighted = [r for r in rows if r["calls_per_step"]]
+    out = {"per": "per train step: batch 32, 2.5 s, bfloat16", "calls": sum(r["calls_per_step"] for r in weighted)}
+    out.update(summed([r for r in weighted for _ in range(r["calls_per_step"])], keys, "ops_ms", "bytes_ms"))
+    out["by_pass"] = {p: summed([r for r in weighted if r["pass"] == p for _ in range(r["calls_per_step"])],
+                                keys, "ops_ms", "bytes_ms") for p in SG_PASSES}
+    return out
+
+
 def make_task(device, *, small: bool, optimizer, compute_dtype=None, ratio: float = 1.0):
     """The eben.yaml task.  ``small``: the CPU tests' sizes (discriminator
     q = 4 / min_channels = 8, one STFT resolution 512/50/240); otherwise the
@@ -1067,11 +1233,15 @@ def make_task(device, *, small: bool, optimizer, compute_dtype=None, ratio: floa
 def reset_counts() -> None:
     residual_stack.launches = residual_stack_backward.launches = 0
     framed_dft_magnitude.launches = framed_dft_backward.launches = 0
+    strided_group_conv.launches = 0
 
 
 def read_counts() -> dict:
+    """The wrappers' launch counters: K1-K4, and C1's entry-point calls
+    (fprop, dgrad and wgrad each count one)."""
     return {"K1": residual_stack.launches, "K2": residual_stack_backward.launches,
-            "K3": framed_dft_magnitude.launches, "K4": framed_dft_backward.launches}
+            "K3": framed_dft_magnitude.launches, "K4": framed_dft_backward.launches,
+            "C1": strided_group_conv.launches}
 
 
 def phase_train_parity() -> None:
@@ -1119,7 +1289,7 @@ def phase_train_parity() -> None:
         raise AssertionError("the train step's losses on the card differ from the CPU's")
     if bad:
         raise AssertionError("the train step's parameters on the card differ from the CPU's")
-    if counts != {"K1": 6, "K2": 6, "K3": 2, "K4": 2}:
+    if counts != {"K1": 6, "K2": 6, "K3": 2, "K4": 2, "C1": 0}:  # float32: the MelGAN convs on cuDNN
         raise AssertionError(f"unexpected kernel launches in one small train step: {counts}")
 
 
@@ -1184,18 +1354,22 @@ def phase_train() -> dict:
     # (the backward of Σλ·L; the balancing gradients stop at the last conv),
     # K3 6 (3 resolutions x enhanced and reference), K4 6 (3 resolutions,
     # enhanced only, once for the STFT loss's balancing norm and once in
-    # the backward of Σλ·L)
-    want = {k: 6 * TRAIN_STEPS for k in ("K1", "K2", "K3", "K4")}
+    # the backward of Σλ·L); C1 32 (SG_CALLS_PER_STEP's calls of the four
+    # MelGAN layers: 12 fprop, 16 dgrad, 4 wgrad)
+    want = {**{k: 6 * TRAIN_STEPS for k in ("K1", "K2", "K3", "K4")}, "C1": C1_PER_STEP * TRAIN_STEPS}
     if counts != want:
         raise AssertionError(f"kernel launches {counts} on the main path, expected {want}")
     return out
 
 
 # CUDA launches of each hand-written kernel in one train step: six calls of
-# each; a bf16 K1 call is two launches (the weight relayout, the stack), a
-# K2 call is k2_passes, a K3 call one, a K4 call two (frames, then the sum)
+# each of K1-K4; a bf16 K1 call is two launches (the weight relayout, the
+# stack), a K2 call is k2_passes, a K3 call one, a K4 call two (frames,
+# then the sum); C1's 32 calls two each (fprop and dgrad: the weight
+# layout, then the GEMM; wgrad: the GEMM's partials, then their sum)
 TRAIN_KERNEL_LAUNCHES = {"K1 fused_residual": 12, "K2 fused_residual_bwd": 6 * len(k2_passes(torch.bfloat16)),
-                         "K3 framed_dft_magnitude": 6, "K4 framed_dft_backward": 12}
+                         "K3 framed_dft_magnitude": 6, "K4 framed_dft_backward": 12,
+                         "C1 strided_group_conv": 2 * C1_PER_STEP}
 
 
 def phase_train_profile() -> dict:
@@ -1306,7 +1480,7 @@ def eval_step_parity(cpu, gpu, states, batch, label: str) -> tuple:
         raise AssertionError(f"the eval step's losses on the card differ from the CPU's ({label})")
     if not (got["enhanced"].shape == want["enhanced"].shape and enh_err <= 1e-4 * scale):
         raise AssertionError(f"the eval step's enhanced audio on the card differs from the CPU's ({label})")
-    if counts != {"K1": 6, "K2": 0, "K3": 6, "K4": 0}:
+    if counts != {"K1": 6, "K2": 0, "K3": 6, "K4": 0, "C1": 0}:
         raise AssertionError(f"unexpected kernel launches in one eval step ({label}): {counts}")
     return stacks, dfts
 
@@ -1550,8 +1724,8 @@ def phase_cli(run_dir: str) -> dict:
 
     def want(steps, val_batches, test_batches):
         fit = {"K1": 6 * (steps + val_batches), "K2": 6 * steps, "K3": 6 * (steps + val_batches),
-               "K4": 6 * steps}
-        return {"fit": fit, "test": {"K1": 6 * test_batches, "K2": 0, "K3": 6 * test_batches, "K4": 0}}
+               "K4": 6 * steps, "C1": C1_PER_STEP * steps}
+        return {"fit": fit, "test": {"K1": 6 * test_batches, "K2": 0, "K3": 6 * test_batches, "K4": 0, "C1": 0}}
 
     EBENTask.train_step, EBENTask.eval_step = timed_train_step, timed_eval_step
     EBENTask.eval_metrics = timed(eval_metrics, "metrics")
@@ -1675,7 +1849,7 @@ def phase_pad_short() -> dict:
     emit(row)
     if not (row["T_batch"] == 1024 and max(row["lengths"]) < 1024 and short):
         raise AssertionError(f"the pad collate's batch did not reach T <= fft / 2: {row}")
-    if counts != {"K1": 6, "K2": 6, "K3": 6, "K4": 3}:
+    if counts != {"K1": 6, "K2": 6, "K3": 6, "K4": 3, "C1": 0}:
         raise AssertionError(f"unexpected kernel launches on the pad-collated batch: {counts}")
     if not (loss_err <= 1e-4 and not bad and len(out["grads"]) == len(grads_cpu)):
         raise AssertionError(f"the pad-collated batch's loss or gradients on the card differ from the CPU's: {row}")
@@ -2200,8 +2374,9 @@ def phase_cli_noisybwe(run_dir: str) -> dict:
     emit(out)
     val, tests = CLI_VAL_BATCHES, CLI_TEST_BATCHES
     want = {"fit": {"K1": 6 * (2 * CLI_STEPS_PER_EPOCH + 2 * 2 * val), "K2": 6 * 2 * CLI_STEPS_PER_EPOCH,
-                    "K3": 6 * (2 * CLI_STEPS_PER_EPOCH + 2 * val), "K4": 6 * 2 * CLI_STEPS_PER_EPOCH},
-            "test": {"K1": 6 * 2 * tests, "K2": 0, "K3": 6 * tests, "K4": 0}}
+                    "K3": 6 * (2 * CLI_STEPS_PER_EPOCH + 2 * val), "K4": 6 * 2 * CLI_STEPS_PER_EPOCH,
+                    "C1": C1_PER_STEP * 2 * CLI_STEPS_PER_EPOCH},
+            "test": {"K1": 6 * 2 * tests, "K2": 0, "K3": 6 * tests, "K4": 0, "C1": 0}}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} on the noisy CLI's fit and test, expected {want}")
     if progress != {"epoch": 1, "global_step": 4} or not have_last or len(steps["train_step_ms"]) != 4:
@@ -2809,7 +2984,7 @@ def phase_spkv_embed() -> dict:
                "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
                "profile": prof, "embedding_finite": bool(torch.isfinite(emb).all())}
         emit(row)
-        want = {"K1": 0, "K2": 0, "K3": SPKV_WARMUP + SPKV_BATCHES, "K4": 0}
+        want = {"K1": 0, "K2": 0, "K3": SPKV_WARMUP + SPKV_BATCHES, "K4": 0, "C1": 0}
         if counts != want or not row["embedding_finite"] or emb.shape != (SPKV_B, model.config.embed_dim):
             raise AssertionError(f"the {dtype} embedder's launches {counts} (want {want}), output {tuple(emb.shape)}")
         out[dtype] = row
@@ -2900,7 +3075,7 @@ def phase_cli_spkv() -> dict:
         m = r["metrics"]
         if set(m) != keys or not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"the SPKV CLI's test metrics {m}")
-        want = {"K1": 0, "K2": 0, "K3": 2 * SPKV_CLI_TRIALS, "K4": 0}
+        want = {"K1": 0, "K2": 0, "K3": 2 * SPKV_CLI_TRIALS, "K4": 0, "C1": 0}
         if r["trials"] != SPKV_CLI_TRIALS or r["launches"] != want:
             raise AssertionError(f"the SPKV CLI ran {r['trials']} trials, launches {r['launches']} (want {want})")
     return out
@@ -3602,7 +3777,7 @@ def phase_hub_enhance() -> dict:
         raise AssertionError("the generator loaded from the hub layout differs from the one saved")
     if not max(errs) <= 1e-5:
         raise AssertionError(f"the enhancement script's output differs from the direct forward: {errs}")
-    if launches != {"K1": 6 * HUB_UTTERANCES, "K2": 0, "K3": 0, "K4": 0}:
+    if launches != {"K1": 6 * HUB_UTTERANCES, "K2": 0, "K3": 0, "K4": 0, "C1": 0}:
         raise AssertionError(f"kernel launches {launches} enhancing {HUB_UTTERANCES} utterances")
     return out
 
@@ -3933,9 +4108,9 @@ def phase_dp_parity(train: dict) -> dict:
         raise AssertionError(f"the two-rank step differs from the one-process step: losses {loss_err}, {bad}")
     if not all(r["losses_finite"] for r in ranks):
         raise AssertionError("a loss of the two-rank bf16 steps is not finite")
-    if any(r["parity_launches"] != {"K1": 6, "K2": 6, "K3": 6, "K4": 6} for r in ranks):
+    if any(r["parity_launches"] != {"K1": 6, "K2": 6, "K3": 6, "K4": 6, "C1": 0} for r in ranks):
         raise AssertionError(f"kernel launches of the parity step: {[r['parity_launches'] for r in ranks]}")
-    if any(p != {"K1": 6, "K2": 6, "K3": 6, "K4": 6} for p in per_step):
+    if any(p != {"K1": 6, "K2": 6, "K3": 6, "K4": 6, "C1": C1_PER_STEP} for p in per_step):
         raise AssertionError(f"kernel launches a step on the ranks: {per_step}")
     return out
 
@@ -4183,7 +4358,7 @@ def phase_weights_day(smi: str) -> dict:
                 for line in (Path(tmp) / "REAL_DATA.md").read_text().splitlines()
                 if line.startswith("| ") and not line.startswith("| config")}
     executed = rows.get("spkv_ecapa2_eval", {}).get("dry_run_executed", {})
-    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in ("K1", "K2", "K3", "K4")}
+    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in ("K1", "K2", "K3", "K4", "C1")}
     env_after = {k: os.environ.get(k) for k in weights_day.STAGED_ENV}
     out = {"phase": "weights_day", "card": smi, "wall_s": wall, "stages": stages, "launches": launches,
            "manifest_keys": sorted(manifest), "raw_bytes": raw_bytes, "executed": executed, "rows": rows,
@@ -4196,8 +4371,9 @@ def phase_weights_day(smi: str) -> dict:
         raise AssertionError(f"the executed spkv_ecapa2_eval row: {rows.get('spkv_ecapa2_eval')}")
     if len(rows) != 5 or any(rows[n] != {"dry_run": "compose+instantiate ok"} for n in rows if n != "spkv_ecapa2_eval"):
         raise AssertionError(f"the parity rows: {rows}")
-    want = {"fetch": {"K1": 0, "K2": 0, "K3": 0, "K4": 0}, "convert": {"K1": 6, "K2": 0, "K3": 1, "K4": 0},
-            "parity": {"K1": 0, "K2": 0, "K3": 2 * WEIGHTS_DAY_TRIALS, "K4": 0}}
+    want = {"fetch": {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "C1": 0},
+            "convert": {"K1": 6, "K2": 0, "K3": 1, "K4": 0, "C1": 0},
+            "parity": {"K1": 0, "K2": 0, "K3": 2 * WEIGHTS_DAY_TRIALS, "K4": 0, "C1": 0}}
     if {k: st["launches"] for k, st in stages.items()} != want:
         raise AssertionError(f"the runbook's launches by stage {stages} (want {want})")
     if env_after != env:
@@ -4231,6 +4407,7 @@ def main() -> int:
     phase_profile()
     k2_rows = phase_k2_parity()
     dft_rows = phase_k3_k4_parity()
+    sg_rows = phase_sgconv_parity(smi)
     pad_short = phase_pad_short()
     phase_train_parity()
     train = phase_train()
@@ -4265,7 +4442,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vibravox_cli_dp_") as cli_dp_dir:
         phase_cli_dp(cli_dp_dir)
     weights_day = phase_weights_day(smi)
-    emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
+    emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, serve_launches, train, train_profile,
                       evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4296,9 +4473,33 @@ def _per_step(rows, dtype, kernel_key, plain_key, ops_key, bytes_key, launches_p
                   launches_per_shape)
 
 
-def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_profile,
+def c1_entry(sg_rows, train, train_profile, launches, launches_by_path, smi) -> dict:
+    """C1's entry of the ``kernels`` line from phase sgconv_parity's rows:
+    ``ms``, ``plain_ms`` (the polyphase twin), ``library_ms`` (cuDNN's bf16
+    call) and ``bound_ms`` a train step (``sg_per_step``), and each call's
+    row."""
+    step = sg_per_step(sg_rows)
+    return {"name": "strided_group_conv", "route": "cuda",
+            "source": "vibravox_tpu_torch/ops/csrc/strided_group_conv.cu",
+            "replaces": None, "note": "no TPU kernel: the JAX package leaves these convolutions to XLA",
+            "launches": launches, "launches_by_path": launches_by_path,
+            "launches_per_step": train["launches_per_step"]["C1"],
+            "max_abs_err": max(max(r["err_over_scale"], r["err_over_scale_f64"]) for r in sg_rows),
+            "max_err_over_tol": max(max(r["err_over_scale"], r["err_over_scale_f64"]) / r["tol"] for r in sg_rows),
+            "ms": step["kernel_ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"], "per": step["per"],
+            "traced_us_per_step": train_profile["by_kind_us"].get("C1 strided_group_conv"), "card": smi,
+            "train": step,
+            "calls": [{k: r[k] for k in ("layer", "B", "pass", "calls_per_step", "kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by", "err_over_scale",
+                                         "err_over_scale_f64", "tol")} for r in sg_rows],
+            "errors": "max_abs_err is the larger of the errors against IEEE float32 and float64, over the "
+                      "reference's largest magnitude"}
+
+
+def kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, serve_launches, train, train_profile,
                  evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day) -> dict:
-    """All four kernels.  ``ms``, ``plain_ms``, ``library_ms`` and
+    """All five kernels: K1-K4, then C1 (``c1_entry``).  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
     measured one by one with CUDA events.  ``launches`` is the count over
@@ -4341,7 +4542,8 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
                 "dp_parity_float32_step_by_rank": [r[key] for r in dp["parity"]["launches_by_rank"]],
                 "weights_day": weights_day["launches"][key]}
 
-    main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k] for k in ("K1", "K2", "K3", "K4")}
+    main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k]
+                 for k in ("K1", "K2", "K3", "K4", "C1")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]
 
     def k1_eval(rows, what):
@@ -4459,6 +4661,7 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, serve_launches, train, train_p
          "per": "per train step: 3 resolutions x 2 backward passes, B 32, T 39904, float32",
          "traced_us_per_step": kinds.get("K4 framed_dft_backward"), "card": smi, "detail": k4,
          "errors": "max_abs_err is the error over the largest |dx|"},
+        c1_entry(sg_rows, train, train_profile, main_path["C1"], by_path("C1"), smi),
     ]}
 
 

@@ -28,6 +28,7 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vibravox_tpu_torch.device import strict_float32
 from vibravox_tpu_torch.models.eben_generator import EBENGenerator
@@ -476,3 +477,169 @@ def test_int8_discriminator_train_step_on_card(cuda, monkeypatch):
         assert (a - b).abs().max().item() <= 0.15 * b.abs().max().item() + 1e-6
     sum(e[-1].sum() for e in out).backward()
     assert torch.isfinite(bands.grad).all() and all(torch.isfinite(p.grad).all() for p in disc.parameters())
+
+
+# The MelGAN discriminator's grouped stride-4 convolutions (ops/strided_group_conv.py):
+# conv_1 ... conv_4 at the train step's shapes (batch 32 in the generator's
+# phase, 64 in the discriminator's).  Bars, as a share of the reference's
+# largest magnitude, from readings on an H100 80GB (700 W): y and
+# dx come back in bf16, whose rounding alone is up to 2^-8 = 3.9e-3 of a
+# value; they read 2.8e-3-3.5e-3 against an IEEE float32 convolution of the
+# same bf16 values and 1.7e-3-3.4e-3 against float64 on two batch rows, so
+# 4.5e-3.  dW is summed in float32 and not rounded: 3.3e-6-1.3e-5 against
+# float32, at most 5.6e-7 against float64, so 1e-4.  cuDNN's bf16 call reads
+# 4.9e-3-5.7e-3 (y, rounded twice), the same as the kernel for dx, and
+# 2.1e-3-5.9e-3 (dW in bf16): the kernel is held within 8e-3 of it.
+SG_LAYERS = [(16, 64, 39904), (64, 256, 9976), (256, 1024, 2494), (1024, 1024, 624)]
+SG_BAR = {"fprop": 4.5e-3, "dgrad": 4.5e-3, "wgrad": 1e-4}
+
+
+def _sg_inputs(b, c_in, c_out, t, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(b, c_in, t, device=device, generator=gen) * 0.5).bfloat16()
+    w = torch.randn(c_out, c_in // 4, 41, device=device, generator=gen) / math.sqrt(41 * c_in / 4)
+    bias = torch.randn(c_out, device=device, generator=gen) * 0.1
+    dy = (torch.randn(b, c_out, -(-t // 4), device=device, generator=gen) * 0.1).bfloat16()
+    return x, w, bias, dy
+
+
+def _conv_backward(dy, x, w, mask):
+    return torch.ops.aten.convolution_backward(dy, x, w, None, [4], [20], [1], False, [0], 4, mask)
+
+
+def _sg_passes(x, w, bias, dy):
+    """(y, dx, dW) of the plain convolution in x's dtype (cuDNN)."""
+    y = F.conv1d(x, w.to(x.dtype), bias.to(x.dtype), 4, 20, 1, 4)
+    dx = _conv_backward(dy, x, w.to(x.dtype), [True, False, False])[0]
+    dw = _conv_backward(dy, x, w.to(x.dtype), [False, True, False])[1]
+    return {"fprop": y, "dgrad": dx, "wgrad": dw}
+
+
+@pytest.mark.parametrize("b", [32, 64])
+@pytest.mark.parametrize("c_in,c_out,t", SG_LAYERS)
+def test_strided_group_conv_matches_cudnn_and_float64(c_in, c_out, t, b, cuda):
+    from vibravox_tpu_torch.ops import strided_group_conv as sg
+
+    x, w, bias, dy = _sg_inputs(b, c_in, c_out, t, cuda, seed=c_in + b)
+    wb = w.bfloat16().float()  # the weight the kernel multiplies with
+    with torch.no_grad():
+        got = {"fprop": sg._fprop(x, w, bias), "dgrad": sg._dgrad(dy, w, x.shape),
+               "wgrad": sg._wgrad(x, dy, w.shape)}
+        lib = _sg_passes(x, w, bias, dy)
+        with strict_float32():
+            ref = _sg_passes(x.float(), wb, bias, dy.float())
+        rows = slice(0, 2)
+        ref64 = _sg_passes(x[rows].double(), wb.double(), bias.double(), dy[rows].double())
+        got64 = {"fprop": got["fprop"][rows], "dgrad": got["dgrad"][rows],
+                 "wgrad": sg._wgrad(x[rows].contiguous(), dy[rows].contiguous(), w.shape)}
+    torch.cuda.synchronize()
+    assert got["fprop"].dtype == got["dgrad"].dtype == torch.bfloat16 and got["wgrad"].dtype == torch.float32
+    for p in ("fprop", "dgrad", "wgrad"):
+        assert got[p].shape == ref[p].shape
+        scale = ref[p].abs().max().item()
+        assert (got[p].float() - ref[p]).abs().max().item() <= SG_BAR[p] * scale, p
+        assert (got[p].float() - lib[p].float()).abs().max().item() <= 8e-3 * scale, p
+        scale64 = ref64[p].abs().max().item()
+        assert (got64[p].double() - ref64[p]).abs().max().item() <= SG_BAR[p] * scale64, p
+
+
+@pytest.mark.parametrize("c_in,c_out,t", [(16, 64, 12345), (64, 256, 3001), (256, 1024, 777), (1024, 1024, 155),
+                                          (1024, 1024, 78), (16, 64, 5)])
+def test_strided_group_conv_matches_float32_at_ragged_lengths(c_in, c_out, t, cuda):
+    """Odd T (element-wise copies, odd output rows), T % 4 != 0, partial
+    tiles, and the lengths MelganMultiScalesDiscriminator's lower scales give."""
+    from vibravox_tpu_torch.ops import strided_group_conv as sg
+
+    x, w, bias, dy = _sg_inputs(3, c_in, c_out, t, cuda, seed=t)
+    with torch.no_grad():
+        got = {"fprop": sg._fprop(x, w, bias), "dgrad": sg._dgrad(dy, w, x.shape),
+               "wgrad": sg._wgrad(x, dy, w.shape)}
+        with strict_float32():
+            ref = _sg_passes(x.float(), w.bfloat16().float(), bias, dy.float())
+    for p in ("fprop", "dgrad", "wgrad"):
+        assert got[p].shape == ref[p].shape
+        scale = ref[p].abs().max().item()
+        assert (got[p].float() - ref[p]).abs().max().item() <= SG_BAR[p] * scale, p
+
+
+@pytest.mark.parametrize("c_in,c_out,t", SG_LAYERS)
+def test_strided_group_conv_backward_is_bit_equal_twice(c_in, c_out, t, cuda):
+    from vibravox_tpu_torch.ops import strided_group_conv as sg
+
+    x, w, _, dy = _sg_inputs(64, c_in, c_out, t, cuda, seed=3)
+    with torch.no_grad():
+        assert torch.equal(sg._dgrad(dy, w, x.shape), sg._dgrad(dy, w, x.shape))
+        assert torch.equal(sg._wgrad(x, dy, w.shape), sg._wgrad(x, dy, w.shape))
+
+
+def test_strided_group_conv_rejects_what_the_kernel_does_not_take(cuda):
+    from vibravox_tpu_torch.ops import strided_group_conv as sg
+
+    x, w, bias, _ = _sg_inputs(2, 64, 256, 1000, cuda)
+    with torch.no_grad():
+        assert sg.strided_group_conv(x, w, bias).shape == (2, 256, 250)
+        with pytest.raises(TypeError, match="bfloat16 CUDA input"):
+            sg.strided_group_conv(x.float(), w, bias)
+        with pytest.raises(ValueError, match="contiguous"):
+            sg.strided_group_conv(x[:, :, ::2], w, bias)
+        with pytest.raises(ValueError, match="does not take"):
+            sg.strided_group_conv(x[:, :32].contiguous(), w[:, :8].contiguous(), bias)  # C_in / 4 = 8
+        with pytest.raises(ValueError, match="does not take"):
+            sg.strided_group_conv(x, w[:, :, :39].contiguous(), bias)  # kernel 39
+        with pytest.raises(TypeError, match="floating point"):
+            sg.strided_group_conv(x, w.to(torch.int32), bias)
+        with pytest.raises(TypeError, match="bias"):
+            sg.strided_group_conv(x, w, bias[:128])
+        with pytest.raises(TypeError, match="weight must be float32 on"):
+            sg.strided_group_conv(x, w.cpu(), bias)
+
+
+def test_strided_group_conv_dispatch_rule_matches_the_library(cuda):
+    """The widths ``takes`` sends to the kernel (``_COG_MULTIPLE``) are the
+    ones the library's plans take (``vx_sgconv_wgrad_splits`` is -1 for a
+    shape it refuses), at every width a group up to 256 in and 512 out."""
+    from vibravox_tpu_torch.ops import strided_group_conv as sg
+
+    lib = sg._library()
+    for cig in range(1, 257):
+        for cog in range(1, 513):
+            ours = sg.takes("cuda", torch.bfloat16, 4 * cig, (4 * cog, cig, 41), 4, (20, 20), 1, 4)
+            assert ours == (lib.vx_sgconv_wgrad_splits(1, cig, cog, 64) >= 1), (cig, cog)
+
+
+def test_eben_train_step_runs_the_melgan_convs_on_the_kernel(cuda):
+    """One eben.yaml step at batch 32 x 2.5 s in bf16: 32 entry-point calls
+    (12 fprop: conv_1 ... conv_4 on enhanced, reference, then both at batch
+    64; 16 dgrad: the two balancing gradients, the generator's backward and
+    the discriminator's; 4 wgrad: the discriminator's backward only), K1-K4
+    6 each as before, and finite losses."""
+    from vibravox_tpu_torch.core.optim import adam
+    from vibravox_tpu_torch.losses.gan import FeatureMatchingLoss, HingeLoss
+    from vibravox_tpu_torch.models.eben_discriminator import DiscriminatorEBENMultiScales
+    from vibravox_tpu_torch.ops import strided_group_conv as sg
+    from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
+    from vibravox_tpu_torch.tasks.eben import EBENTask
+
+    torch.manual_seed(0)
+    res = [(512, 50, 240), (1024, 120, 600), (2048, 240, 1200)]
+    task = EBENTask(
+        sample_rate=16000, generator=EBENGenerator(m=4, n=32, p=2, device="cpu"),
+        discriminator=DiscriminatorEBENMultiScales(q=4, min_channels=24, device="cpu"),
+        generator_optimizer=adam(3e-4, betas=(0.5, 0.9)), discriminator_optimizer=adam(3e-4, betas=(0.5, 0.9)),
+        reconstructive_loss_freq_fn=MultiResolutionSTFTLoss(
+            [r[0] for r in res], [r[1] for r in res], [r[2] for r in res], sample_rate=16000,
+            perceptual_weighting=True, device=cuda),
+        feature_matching_loss_fn=FeatureMatchingLoss(), adversarial_loss_fn=HingeLoss(),
+        dynamic_loss_balancing="ema", beta_ema=0.9, update_discriminator_ratio=1.0,
+        compute_dtype="bfloat16", device=cuda)
+    state = task.init_state(seed=0)
+    gen = torch.Generator().manual_seed(5)
+    batch = {k: (torch.randn(32, 40000, 1, generator=gen) * 0.1).to(cuda)
+             for k in ("audio_body_conducted", "audio_airborne")}
+    counters = (sg.strided_group_conv, residual_stack, residual_stack_backward, framed_dft_magnitude,
+                framed_dft_backward)
+    before = [c.launches for c in counters]
+    state, logs = task.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [32, 6, 6, 6, 6]
+    assert all(math.isfinite(float(v)) for v in logs.values())

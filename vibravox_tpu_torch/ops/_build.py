@@ -24,7 +24,8 @@ from typing import Dict
 
 __all__ = ["build", "build_all", "load", "SOURCES"]
 
-SOURCES = ("fused_residual", "fused_residual_bwd", "framed_dft")  # K1, K2, K3 and K4
+# K1, K2, K3 and K4; the MelGAN discriminator's strided grouped convs
+SOURCES = ("fused_residual", "fused_residual_bwd", "framed_dft", "strided_group_conv")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -6,6 +6,12 @@ channels-last with WIO weights; here activations are ``(B, C, T)`` and
 weights are torch's ``(out, in // groups, k)`` (``(in, out // groups, k)``
 for transposed convs).  Weights are cast to the activations' dtype at the
 call, the JAX package's mixed-precision policy (f32 masters, bf16 compute).
+
+``conv1d`` sends the MelGAN discriminator's grouped stride-4 convolutions
+(kernel 41, stride 4, zero padding 20, 4 groups) on CUDA bfloat16 input to
+the hand-written kernel of ``ops/strided_group_conv.py``, which casts the
+float32 weight itself; every other call, float32 and the CPU included, runs
+``F.conv1d`` (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from vibravox_tpu_torch.ops import strided_group_conv as sgconv
 
 __all__ = ["same_pad_amount", "reflect_pad", "conv1d", "conv_transpose1d", "norm_padding"]
 
@@ -66,6 +74,8 @@ def conv1d(
         pad = (0, 0)
     elif pad_mode != "zeros":
         raise ValueError(f"Unknown pad_mode {pad_mode!r}")
+    if sgconv.takes(x.device.type, x.dtype, x.shape[1], weight.shape, stride, pad, dilation, groups):
+        return sgconv.strided_group_conv(x.contiguous(), weight, bias)
     if pad[0] != pad[1]:
         x = F.pad(x, pad)
         pad = (0, 0)
