@@ -62,6 +62,25 @@ def test_cli_fits_validates_checkpoints_tests_and_resumes(tmp_path):
     assert manager.trainer_state() == {"epoch": 2, "global_step": 6}
 
 
+def test_cli_fits_the_tiny_wavlm(tmp_path):
+    """The same CLI with the WavLM dnn_module (its preset cut to tiny): one
+    fit step, validation and test through ``Wav2Vec2STPTask``."""
+    from vibravox_tpu_torch.core.checkpoint import _STATE
+    from vibravox_tpu_torch.run import main
+
+    args = [a for a in CLI_ARGS if not a.startswith("lightning_module/dnn_module@")] + [
+        "lightning_module/dnn_module@lightning_module.wav2vec2_for_ctc=wavlm_for_ctc_from_config",
+        "++lightning_module.wav2vec2_for_ctc.preset=tiny", "++lightning_datamodule.synthetic_size=2",
+        f"++run_dir={tmp_path}", "++trainer.max_epochs=1"]
+    metrics = main(args)
+    assert set(metrics) == {"test/ctc_loss", "test/char_error_rate"}
+    assert all(math.isfinite(v) for v in metrics.values())
+    manager = CheckpointManager(str(tmp_path / "checkpoints"))
+    assert manager.trainer_state() == {"epoch": 0, "global_step": 1}
+    model = torch.load(tmp_path / "checkpoints" / "last" / _STATE, weights_only=True)["model"]
+    assert "wavlm.encoder.layers.0.attention.rel_attn_embed.weight" in model
+
+
 def _task(seed=0):
     model = wav2vec2_for_ctc_from_config(preset="tiny", seed=seed, device="cpu", **NOISY)
     return Wav2Vec2STPTask(wav2vec2_for_ctc=model, optimizer=adam(3e-4, betas=(0.5, 0.9)), device="cpu")

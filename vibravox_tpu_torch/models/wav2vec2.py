@@ -32,6 +32,10 @@ casts where the JAX model does: the inputs and weights of every Linear and
 conv are bf16, LayerNorm and GroupNorm give float32, so the residual stream
 is float32.
 
+The front end (``encode_features``), the blocks and the checkpoint loader
+(``ctc_from_pretrained``) are shared with the port's WavLM
+(``models/wavlm.py``).
+
 ``wav2vec2_for_ctc_from_config`` makes a model with random weights, drawn
 from the distributions of the JAX initialisers; ``wav2vec2_for_ctc_from_pretrained``
 reads a local HF-layout directory (``config.json``, ``pytorch_model.bin``)
@@ -63,6 +67,13 @@ __all__ = [
     "TINY_W2V2_CONFIG",
     "span_starts",
     "span_mask",
+    "encode_features",
+    "FeatureEncoder",
+    "FeatureProjection",
+    "PositionalConvEmbedding",
+    "Attention",
+    "FeedForward",
+    "ctc_from_pretrained",
     "wav2vec2_for_ctc_from_config",
     "wav2vec2_for_ctc_from_pretrained",
 ]
@@ -342,8 +353,43 @@ class Wav2Vec2Model(nn.Module):
         self.encoder = Encoder(config)
 
 
+def encode_features(model: nn.Module, cfg, input_values: torch.Tensor, dtype: Optional[torch.dtype],
+                    gen: Optional[torch.Generator], freeze_feature_encoder: bool) -> torch.Tensor:
+    """The front end that wav2vec2 and WavLM share: waveform (B, T) ->
+    (B, T', hidden), through ``model``'s conv feature encoder (without
+    gradients when frozen), its feature projection and dropout, and with a
+    ``gen`` (training) SpecAugment's time spans (``masked_spec_embed``)
+    and feature spans, drawn in that order."""
+    x = input_values[:, None, :]
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not freeze_feature_encoder):
+        feats = model.feature_extractor(x, dtype)
+    feats = feats.transpose(1, 2)  # (B, T', C)
+
+    proj = model.feature_projection
+    h = _linear(_layer_norm(feats, proj.layer_norm), proj.projection, dtype)
+    h = _dropout(h, cfg.feat_proj_dropout, gen)
+
+    if gen is not None and cfg.apply_spec_augment:
+        b, t, d = h.shape
+        if cfg.mask_time_prob > 0:
+            starts = span_starts(gen, b, t, cfg.mask_time_prob, cfg.mask_time_length,
+                                 cfg.mask_time_min_masks, h.device)
+            if starts is not None:
+                mask = span_mask(starts, t, cfg.mask_time_length)
+                h = torch.where(mask[:, :, None], model.masked_spec_embed, h)
+        if cfg.mask_feature_prob > 0:
+            starts = span_starts(gen, b, d, cfg.mask_feature_prob, cfg.mask_feature_length,
+                                 cfg.mask_feature_min_masks, h.device)
+            if starts is not None:
+                mask = span_mask(starts, d, cfg.mask_feature_length)
+                h = torch.where(mask[:, None, :], 0.0, h)
+    return h
+
+
 class Wav2Vec2ForCTC(nn.Module):
     """Waveform (B, T) -> float32 logits (B, T', vocab_size)."""
+
+    base_model_prefix = "wav2vec2"  # HF's: the encoder's attribute and state-dict prefix
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -364,30 +410,7 @@ class Wav2Vec2ForCTC(nn.Module):
         gen = None
         if train:
             gen = generator if generator is not None else torch.Generator(input_values.device).manual_seed(0)
-
-        x = input_values[:, None, :]
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not freeze_feature_encoder):
-            feats = model.feature_extractor(x, dtype)
-        feats = feats.transpose(1, 2)  # (B, T', C)
-
-        proj = model.feature_projection
-        h = _linear(_layer_norm(feats, proj.layer_norm), proj.projection, dtype)
-        h = _dropout(h, cfg.feat_proj_dropout, gen)
-
-        if train and cfg.apply_spec_augment:
-            b, t, d = h.shape
-            if cfg.mask_time_prob > 0:
-                starts = span_starts(gen, b, t, cfg.mask_time_prob, cfg.mask_time_length,
-                                     cfg.mask_time_min_masks, h.device)
-                if starts is not None:
-                    mask = span_mask(starts, t, cfg.mask_time_length)
-                    h = torch.where(mask[:, :, None], model.masked_spec_embed, h)
-            if cfg.mask_feature_prob > 0:
-                starts = span_starts(gen, b, d, cfg.mask_feature_prob, cfg.mask_feature_length,
-                                     cfg.mask_feature_min_masks, h.device)
-                if starts is not None:
-                    mask = span_mask(starts, d, cfg.mask_feature_length)
-                    h = torch.where(mask[:, None, :], 0.0, h)
+        h = encode_features(model, cfg, input_values, dtype, gen, freeze_feature_encoder)
 
         enc = model.encoder
         h = h + enc.pos_conv_embed(h, dtype)
@@ -411,12 +434,15 @@ class Wav2Vec2ForCTC(nn.Module):
 
 
 @torch.no_grad()
-def _init_jax_like(model: Wav2Vec2ForCTC, seed: int) -> None:
+def _init_jax_like(model: nn.Module, seed: int) -> torch.Generator:
     """The JAX initialisers' distributions: Linear and conv weights
     lecun_normal over their fan-in, biases 0; norms 1 and 0; the positional
     conv's direction he_normal over k * hidden / groups and its gain the
-    direction's norm per tap; ``masked_spec_embed`` uniform in [0, 1)."""
+    direction's norm per tap; ``masked_spec_embed`` uniform in [0, 1).
+    ``model``: a CTC model whose encoder is its ``base_model_prefix``
+    attribute.  Returns the generator, for a caller's further draws."""
     gen = torch.Generator().manual_seed(int(seed))
+    base = getattr(model, model.base_model_prefix)
     for module in model.modules():
         if isinstance(module, nn.Linear):
             variance_scaling_(module.weight, 1.0, module.in_features, gen)
@@ -424,18 +450,19 @@ def _init_jax_like(model: Wav2Vec2ForCTC, seed: int) -> None:
         elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)
-    for layer in model.wav2vec2.feature_extractor.conv_layers:
+    for layer in base.feature_extractor.conv_layers:
         conv = layer.conv
         variance_scaling_(conv.weight, 1.0, conv.in_channels * conv.kernel_size[0], gen)
         if conv.bias is not None:
             nn.init.zeros_(conv.bias)
-    pos = model.wav2vec2.encoder.pos_conv_embed.conv
+    pos = base.encoder.pos_conv_embed.conv
     v = pos.parametrizations.weight.original1
     variance_scaling_(v, 2.0, v.shape[1] * v.shape[2], gen)
     pos.parametrizations.weight.original0.copy_(torch.linalg.vector_norm(v, dim=(0, 1), keepdim=True))
     nn.init.zeros_(pos.bias)
     if model.config.apply_spec_augment:
-        nn.init.uniform_(model.wav2vec2.masked_spec_embed, 0.0, 1.0, generator=gen)
+        nn.init.uniform_(base.masked_spec_embed, 0.0, 1.0, generator=gen)
+    return gen
 
 
 def wav2vec2_for_ctc_from_config(
@@ -496,45 +523,57 @@ def wav2vec2_for_ctc_from_pretrained(
     (normal, std 0.02, bias 0, from ``seed``), as HF does, and so is
     ``masked_spec_embed`` (uniform).  A name that is not a local directory
     raises: the port never downloads."""
+    return ctc_from_pretrained(Wav2Vec2ForCTC, Wav2Vec2Config, pretrained_model_name_or_path, pad_token_id,
+                               vocab_size, seed, device, config_overrides)
+
+
+def ctc_from_pretrained(model_cls, config_cls, pretrained_model_name_or_path: str, pad_token_id: int,
+                        vocab_size: int, seed: int, device: DeviceLike, config_overrides: Dict[str, Any]):
+    """``wav2vec2_for_ctc_from_pretrained`` for any CTC model of HF's layout
+    whose encoder is its ``base_model_prefix`` attribute (``wav2vec2``,
+    ``wavlm``).  A base model's checkpoint, saved without that prefix (HF's
+    ``WavLMModel``), has it put in front of each key."""
+    prefix = model_cls.base_model_prefix
     directory = Path(pretrained_model_name_or_path)
     if not directory.is_dir():
         raise FileNotFoundError(
             f"{pretrained_model_name_or_path!r} is not a local directory: the port loads a pretrained "
-            "wav2vec2 from a directory holding config.json and pytorch_model.bin and never downloads")
+            f"{prefix} from a directory holding config.json and pytorch_model.bin and never downloads")
     weights = next((directory / n for n in _WEIGHT_FILES if (directory / n).is_file()), None)
     if not (directory / "config.json").is_file() or weights is None:
         raise FileNotFoundError(f"{directory} lacks config.json or a weight file ({', '.join(_WEIGHT_FILES)})")
     dev = resolve_device(device)
     hf = json.loads((directory / "config.json").read_text())
-    fields = {f.name for f in dataclasses.fields(Wav2Vec2Config)}
+    fields = {f.name for f in dataclasses.fields(config_cls)}
     unknown = sorted(set(config_overrides) - fields)
     if unknown:
-        raise TypeError(f"unknown wav2vec2 config overrides {unknown}")
+        raise TypeError(f"unknown {prefix} config overrides {unknown}")
     kwargs = {k: v for k, v in hf.items() if k in fields and k != "compute_dtype"}
     kwargs.update(pad_token_id=pad_token_id, vocab_size=vocab_size, **config_overrides)
-    model = Wav2Vec2ForCTC(Wav2Vec2Config(**kwargs))
+    model = model_cls(config_cls(**kwargs))
 
     raw = (safetensors_io.load_file(weights) if weights.suffix == ".safetensors"
            else torch.load(weights, map_location="cpu", weights_only=True))
     sd, dropped = _checkpoint_state_dict(raw)
+    sd = {k if k.startswith((f"{prefix}.", "lm_head.")) else f"{prefix}.{k}": v for k, v in sd.items()}
     own = model.state_dict()
     gen = torch.Generator().manual_seed(int(seed))
     initialised = []
+    embed = f"{prefix}.masked_spec_embed"
     with torch.no_grad():
         if "lm_head.weight" not in sd:
             sd["lm_head.weight"] = torch.empty_like(own["lm_head.weight"]).normal_(0.0, 0.02, generator=gen)
             sd["lm_head.bias"] = torch.zeros_like(own["lm_head.bias"])
             initialised += ["lm_head.weight", "lm_head.bias"]
-        if "wav2vec2.masked_spec_embed" not in own:  # spec augment off: the embedding is not used
-            sd.pop("wav2vec2.masked_spec_embed", None)
-        elif "wav2vec2.masked_spec_embed" not in sd:
-            sd["wav2vec2.masked_spec_embed"] = torch.empty_like(own["wav2vec2.masked_spec_embed"]).uniform_(
-                generator=gen)
-            initialised.append("wav2vec2.masked_spec_embed")
+        if embed not in own:  # spec augment off: the embedding is not used
+            sd.pop(embed, None)
+        elif embed not in sd:
+            sd[embed] = torch.empty_like(own[embed]).uniform_(generator=gen)
+            initialised.append(embed)
     model.load_state_dict(sd, strict=True)
     model.load_report = {"dropped": dropped, "initialised": initialised}
     if dropped or initialised:
-        print(f"[wav2vec2] {directory}: dropped {len(dropped)} pretraining keys, initialised {initialised}",
+        print(f"[{prefix}] {directory}: dropped {len(dropped)} pretraining keys, initialised {initialised}",
               flush=True)
     return model.to(dev)
 

@@ -41,14 +41,21 @@ Spec = Tuple[Optional[str], ...]
 _COLUMN = {"q_proj", "k_proj", "v_proj", "intermediate_dense", "linear1"}
 # row-parallel: input features sharded (kernel dim 0); bias replicated
 _ROW = {"out_proj", "output_dense", "linear2"}
+# WavLM's gated relative-position attention (models/wavlm.py): a split would
+# have to cut its gate's constant, its bucket table and P to a rank's heads too
+_WAVLM_GATE = {"gru_rel_pos_linear", "gru_rel_pos_const", "rel_attn_embed"}
+_WAVLM_REFUSED = "WavLM's gated relative-position attention is not split over model: run it with model = 1"
 
 
 def transformer_tp_spec(path_names: Sequence[str], shape: Tuple[int, ...], model_size: int) -> Spec:
     """The placement of one leaf, matched on its trailing ``(module,
     param)`` names (``kernel`` / ``bias``, JAX layout): a tuple of axis
-    names as ``PartitionSpec``, ``()`` for replicated."""
+    names as ``PartitionSpec``, ``()`` for replicated.  Over a model axis,
+    a path through WavLM's gate raises ``NotImplementedError``."""
     if model_size <= 1 or len(path_names) < 2:
         return ()
+    if _WAVLM_GATE.intersection(path_names):
+        raise NotImplementedError(_WAVLM_REFUSED)
     mod, name = path_names[-2], path_names[-1]
     if mod in _COLUMN:
         if name == "kernel" and len(shape) == 2 and shape[1] % model_size == 0:
@@ -157,11 +164,14 @@ def shard_transformer_(model: nn.Module, shard: ModelShard, spec_fn: Callable = 
     ``shard.size`` divides, setting the module's ``tp_attention``, and every
     feed-forward block (``intermediate_dense`` / ``output_dense`` or
     ``linear1`` / ``linear2``) whose widths it divides, setting its
-    ``tp_ffn``.  Returns the number of blocks split."""
+    ``tp_ffn``.  Returns the number of blocks split.  A WavLM attention
+    block raises ``NotImplementedError``."""
     if shard.size <= 1:
         return 0
     split = 0
     for module in list(model.modules()):
+        if any(hasattr(module, n) for n in _WAVLM_GATE):
+            raise NotImplementedError(_WAVLM_REFUSED)
         blocks = []
         if (all(hasattr(module, n) for n in ("q_proj", "k_proj", "v_proj", "out_proj", "num_heads"))
                 and module.num_heads % shard.size == 0):

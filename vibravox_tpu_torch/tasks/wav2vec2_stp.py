@@ -1,4 +1,4 @@
-"""Speech-to-phoneme task: wav2vec2-CTC fine-tuning (PyTorch).
+"""Speech-to-phoneme task: wav2vec2-CTC fine-tuning (PyTorch), and WavLM-CTC's.
 
 Counterpart of ``vibravox_tpu/tasks/wav2vec2_stp.py::Wav2Vec2STPTask``
 (the reference's ``Wav2Vec2ForSTPLightningModule``,
@@ -16,7 +16,9 @@ The step runs cuDNN's float32 convolutions in IEEE float32
 ``precision="bf16-mixed"``) casts the Linear and conv inputs and weights.
 No hand-written kernel lies on this path: the JAX model is XLA
 convolutions, dense layers and ``dot_product_attention``, and its CTC an
-XLA scan.
+XLA scan.  The same step trains the port's WavLM (``models/wavlm.py``,
+which the JAX package lacks), whose forward opens its own spans inside
+``stp.forward``.
 
 ``accumulate_grad_batches = k`` steps Adam on the mean of k micro-batch
 gradients (``optax.MultiSteps``, ``core/optim.py::MultiSteps``).  Over a
@@ -40,6 +42,7 @@ from vibravox_tpu_torch.core.optim import accumulate, materialise, step_counts_t
 from vibravox_tpu_torch.core.profiler import span
 from vibravox_tpu_torch.device import DeviceLike, resolve_device, strict_float32
 from vibravox_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
+from vibravox_tpu_torch.models.wavlm import WavLMForCTC
 from vibravox_tpu_torch.ops.ctc import ctc_loss
 from vibravox_tpu_torch.parallel.mesh import sync_gradients
 from vibravox_tpu_torch.parallel.tp import transformer_tp_spec
@@ -81,8 +84,9 @@ class STPTrainState:
 class Wav2Vec2STPTask:
     """The constructor surface of the JAX ``Wav2Vec2STPTask``.
 
-    ``wav2vec2_for_ctc``: a ``Wav2Vec2ForCTC`` or a factory of one (a
-    config's ``_partial_``); ``optimizer``: a factory over parameters
+    ``wav2vec2_for_ctc``: a ``Wav2Vec2ForCTC`` or a ``WavLMForCTC``
+    (``models/wavlm.py``), or a factory of one (a config's
+    ``_partial_``); ``optimizer``: a factory over parameters
     (``core/optim.py``); ``tokenizer``: the data module's (``run.main``
     hands it over), used by ``eval_metrics``.  ``device``: ``None`` for the
     GPU (raises without one), or ``"cpu"``.  Refused: ``flatten_optimizer``
@@ -106,8 +110,9 @@ class Wav2Vec2STPTask:
         model = self.wav2vec2_for_ctc
         if not isinstance(model, nn.Module):
             model = model()
-        if not isinstance(model, Wav2Vec2ForCTC):
-            raise TypeError(f"wav2vec2_for_ctc must make a Wav2Vec2ForCTC, got {type(model).__name__}")
+        if not isinstance(model, (Wav2Vec2ForCTC, WavLMForCTC)):
+            raise TypeError(f"wav2vec2_for_ctc must make a Wav2Vec2ForCTC or a WavLMForCTC, "
+                            f"got {type(model).__name__}")
         self.wav2vec2_for_ctc = model.to(self.device)
         self.optimizer = materialise(self.optimizer)
         self.blank_id = int(model.config.pad_token_id)
