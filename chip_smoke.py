@@ -14,7 +14,8 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
    (unit_backward_tf32) HMMA, its float32 recompute kernels
    (unit_forward_fma) FFMA and no HMMA, and the float32 FMA kernels they
    replaced (unit_forward_kernel, unit_backward_kernel) may not be left;
-   C1's fprop, dgrad and wgrad kernels must have HMMA and LDSM;
+   C1's fprop, dgrad and wgrad kernels must have HMMA and LDSM; C2's
+   forward and backward kernels must have FFMA and no HMMA (IEEE float32);
 3. k1_parity: the fused residual stack (K1) against its plain PyTorch version
    at the serving shapes in float32 (atol 2e-5 of scale, TF32 off for the
    plain convolutions) and bfloat16 (2e-2 of scale), plus ragged T = 1001 and
@@ -55,6 +56,23 @@ The kernels build from ``vibravox_tpu_torch/ops/csrc`` at first use.  Phases
    1e-4), dgrad and wgrad bit-equal twice; ms a call of cuDNN's bf16 call
    (first), the kernel and the plain twin, each beside its bound; then the
    sums a train step (``sgconv_step``);
+9b. gated_attention_parity: C2, WavLM's gated relative-position attention
+   on its hand-written IEEE float32 kernels, at the WavLM cell's shape (B 8,
+   H 16, T 999, heads of 64): the forward and dq, dk, dv, the gate's and
+   P's diagonals' gradients against the float64 plain twin (5e-5 of
+   scale), beside the library route's errors (SDPA on the materialised
+   bias), bit-equal twice; ms a call of the kernel, the library route and
+   the twin, forward and backward, beside the FMA and TF32 bounds, and the
+   sums a train step (24 layers);
+9c. wavlm_step: one ``Wav2Vec2STPTask.train_step`` of WavLM-Large (the
+   ``large`` preset, IEEE float32, Adam) at the WavLM cell's shape, B 8 x
+   320000 samples (999 frames), from the same weights on each route: the
+   kernel's (C2 48 launches and no other kernel, 24 attention calls all
+   fused, no gated bias made) and the library's (``takes`` answering no:
+   SDPA on 24 materialised biases); the loss within the cell's
+   ``first_loss_gap`` of the library route's and each gradient's norm
+   within its ``grad_norm_gap`` by the median leaf, with the memory peak
+   of each; C2's launches in the ``kernels`` line come from it;
 10. pad_short: the ``pad`` collate on 32 utterances under 1024 samples
    (T = 1024, 992 after the generator's cut) through the full task's
    generator and its STFT loss, forward and backward, on the card against
@@ -306,8 +324,10 @@ from vibravox_tpu_torch.models.mimi.mimi import ENCODER_SIDE, Mimi
 from vibravox_tpu_torch.models.ecapa2 import ECAPA2, ecapa2_from_config
 from vibravox_tpu_torch.models.ecapa_tdnn import ECAPATDNN
 from vibravox_tpu_torch.models.wav2vec2 import save_pretrained, wav2vec2_for_ctc_from_config
+from vibravox_tpu_torch.models.wavlm import wavlm_attention, wavlm_for_ctc_from_config
 from vibravox_tpu_torch.ops import _build
 from vibravox_tpu_torch.ops import augment
+from vibravox_tpu_torch.ops import gated_attention as gattn
 from vibravox_tpu_torch.ops.fused_residual import (
     plain_residual_stack,
     plain_residual_stack_backward,
@@ -327,6 +347,7 @@ from vibravox_tpu_torch.ops.pallas_stft import (
 from vibravox_tpu_torch.ops import resample
 from vibravox_tpu_torch.ops import strided_group_conv as sgconv
 from vibravox_tpu_torch.ops.ctc import ctc_loss
+from vibravox_tpu_torch.ops.gated_attention import gated_attention
 from vibravox_tpu_torch.ops.resample import KaiserResampler, bank_nbytes, design_band, design_kernel
 from vibravox_tpu_torch.ops.stft import MultiResolutionSTFTLoss
 from vibravox_tpu_torch.ops.strided_group_conv import strided_group_conv
@@ -645,13 +666,25 @@ def check_c1_kernels(source: str, counts: dict) -> None:
                 raise AssertionError(f"{source}: a {p} kernel lacks HMMA or LDSM: {k} {v}")
 
 
+def check_c2_kernels(source: str, counts: dict) -> None:
+    """Raises unless C2's forward and backward kernels are built, each with
+    FFMA and no HMMA in its SASS: IEEE float32 on the FMAs, no TF32."""
+    for name in ("gated_attention_forward_kernel", "gated_attention_backward_kernel"):
+        found = {k: v for k, v in counts.items() if name in k}
+        if not found:
+            raise AssertionError(f"{source}: no {name} in its SASS: {sorted(counts)}")
+        for k, v in found.items():
+            if v["HMMA"] or not v["FFMA"]:
+                raise AssertionError(f"{source}: {k} is not on FFMAs alone: {v}")
+
+
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together; the HMMA,
     LDSM and FFMA counts of each kernel.  K1's kernel must run on the
     tensor cores from ldmatrix fragments in both types (float32 in
     3xTF32), and its FMA kernel may not be left; K2's kernels as
     check_k2_kernels holds them, their float32 counts on a line of their
-    own; C1's as check_c1_kernels holds them."""
+    own; C1's as check_c1_kernels holds them, C2's as check_c2_kernels."""
     t0 = time.perf_counter()
     infos = _build.build_all(_build.SOURCES)
     wall = time.perf_counter() - t0
@@ -668,6 +701,8 @@ def phase_build() -> None:
             emit({"phase": "build", "source": name, "float32_kernels": check_k2_kernels(name, counts)})
         elif name == "strided_group_conv":
             check_c1_kernels(name, counts)
+        elif name == "gated_attention":
+            check_c2_kernels(name, counts)
 
 
 def k1_config(b: int, c: int, t: int, dtype: torch.dtype) -> dict:
@@ -1204,6 +1239,211 @@ def sg_per_step(rows) -> dict:
     return out
 
 
+# C2, WavLM's gated relative-position attention, at the WavLM cell's shape:
+# batch 8 of utterances padded to 320000 samples (999 frames), 16 heads of
+# 64; 24 layers a train step, each one forward and one backward call
+GA_SHAPE = (8, 16, 999)
+GA_CALLS_PER_STEP = 24
+GA_OUTPUTS = ("out", "dq", "dk", "dv", "dgate", "ddiag")
+# each output's largest gap over the float64 twin's largest magnitude
+GA_TOL = 5e-5
+
+
+def ga_inputs(b: int, h: int, t: int, seed: int):
+    """q, k, v as the model hands them over (views of (B, T, H, 64)
+    projections), N(0, 1); the gate in (1, 3), as a (b c - 1) + 2 gives it
+    at c = 1; D N(0, 1), as ``rel_attn_embed``; the output's gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h, 64, device="cuda", generator=gen).transpose(1, 2) for _ in range(3))
+    gate = 1.0 + 2.0 * torch.rand(b, h, t, device="cuda", generator=gen)
+    diag = torch.randn(h, 2 * t - 1, device="cuda", generator=gen)
+    dout = torch.randn(b, t, h, 64, device="cuda", generator=gen).transpose(1, 2)
+    return q, k, v, gate, diag, dout
+
+
+def ga_through(fn, q, k, v, gate, diag, dout) -> dict:
+    """fn's output and the five gradients by autograd."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v, gate, diag)]
+    out = fn(*leaves)
+    return dict(zip(GA_OUTPUTS, [out.detach(), *torch.autograd.grad(out, leaves, dout)]))
+
+
+def ga_library(q, k, v, gate, diag):
+    """The library route WavLM takes off the kernel: the (B, H, T, T) gated
+    bias made from P and handed to SDPA as its float mask."""
+    t = q.shape[-2]
+    pos = torch.arange(t, device=q.device)
+    table = diag[:, pos[None, :] - pos[:, None] + t - 1]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=gate[..., None] * table)
+
+
+def phase_gated_attention_parity(smi: str) -> dict:
+    """C2 at the WavLM cell's shape (GA_SHAPE): the forward and the five
+    gradients through ``gated_attention``'s autograd Function against the
+    float64 plain twin (each within GA_TOL of its largest magnitude), beside
+    the library route's errors (SDPA on the materialised bias, float32);
+    every output bit-equal over two runs; then ms a call by CUDA events of
+    the kernel's forward and backward entry points, the library route's
+    (the bias made, SDPA, and its gradients to q, k, v, the gate and P) and
+    the plain twin's in float32, beside the bounds: 2 products of 2 B H T^2
+    64 FLOP forward and 5 backward at the 67 TFLOP/s of float32 FMAs (the
+    kernel's own), and at TF32's 495 (``portbench/count/attention.py``'s);
+    the sums a train step (GA_CALLS_PER_STEP layers)."""
+    b, h, t = GA_SHAPE
+    q, k, v, gate, diag, dout = ga_inputs(b, h, t, seed=2026)
+    launches0 = gated_attention.launches
+    got = ga_through(gated_attention, q, k, v, gate, diag, dout)
+    again = ga_through(gated_attention, q, k, v, gate, diag, dout)
+    launches = gated_attention.launches - launches0
+    with strict_float32():
+        lib = ga_through(ga_library, q, k, v, gate, diag, dout)
+    ref = ga_through(gattn.plain_gated_attention, *(x.double() for x in (q, k, v, gate, diag, dout)))
+    torch.cuda.synchronize()
+    errs = {n: rel_err(got[n], ref[n]) for n in GA_OUTPUTS}
+    lib_errs = {n: rel_err(lib[n], ref[n]) for n in GA_OUTPUTS}
+    bit_equal = {n: bool(torch.equal(got[n], again[n])) for n in GA_OUTPUTS}
+    del ref, lib, again
+
+    with torch.no_grad():
+        out, lse = gattn._forward(q, k, v, gate, diag)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v, gate[..., None], diag)]
+    pos = torch.arange(t, device="cuda")
+    table = leaves[4][:, pos[None, :] - pos[:, None] + t - 1].detach().requires_grad_(True)
+
+    def lib_forward():
+        return F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3] * table)
+
+    def twin_forward():
+        return gattn.plain_gated_attention(leaves[0], leaves[1], leaves[2], leaves[3][..., 0], leaves[4])
+
+    with strict_float32():
+        y_lib, y_twin = lib_forward(), twin_forward()
+        ms = {"kernel_forward": cuda_ms(lambda: gattn._forward(q, k, v, gate, diag), 20),
+              "kernel_backward": cuda_ms(lambda: gattn._backward(q, k, v, gate, diag, out, dout, lse), 10),
+              "library_forward": cuda_ms(lib_forward, 10),
+              "library_backward": cuda_ms(lambda: torch.autograd.grad(
+                  y_lib, leaves[:4] + [table], dout, retain_graph=True), 5),
+              "plain_forward": cuda_ms(twin_forward, 5),
+              "plain_backward": cuda_ms(lambda: torch.autograd.grad(y_twin, leaves, dout, retain_graph=True), 3)}
+    del y_lib, y_twin
+    product = 2.0 * b * h * t * t * 64
+    rows, elem = b * h * t * 64, 4
+    work = {"forward": (2 * product, elem * (4 * rows + 2 * b * h * t + h * (2 * t - 1))),
+            "backward": (5 * product, elem * (8 * rows + 3 * b * h * t + 2 * h * (2 * t - 1)))}
+    row = {"phase": "gated_attention_parity", "card": smi, "B": b, "H": h, "T": t, "head_dim": 64,
+           "err_over_scale": errs, "library_err_over_scale": lib_errs, "tol": GA_TOL,
+           "bit_equal_twice": bit_equal, "wrapper_launches": launches, "ms": ms}
+    for p, (flops, nbytes) in work.items():
+        row[p] = {"kernel_ms": ms[f"kernel_{p}"], "library_ms": ms[f"library_{p}"], "plain_ms": ms[f"plain_{p}"],
+                  "fma_ops_ms": flops / PEAK_FLOPS[torch.float32] * 1e3, "tf32_ops_ms": flops / TF32_PEAK_FLOPS * 1e3,
+                  "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "kernel_tflops": flops / ms[f"kernel_{p}"] / 1e9, "library_tflops": flops / ms[f"library_{p}"] / 1e9}
+    row["per_train_step"] = {
+        "calls": 2 * GA_CALLS_PER_STEP,
+        **{k: GA_CALLS_PER_STEP * (row["forward"][k] + row["backward"][k])
+           for k in ("kernel_ms", "library_ms", "plain_ms", "fma_ops_ms", "tf32_ops_ms", "bytes_ms")}}
+    emit(row)
+    if not all(e <= GA_TOL for e in errs.values()):
+        raise AssertionError(f"C2 differs from the float64 twin: {errs}")
+    if not all(bit_equal.values()):
+        raise AssertionError(f"C2 is not bit-equal across two runs: {bit_equal}")
+    if launches != 4:
+        raise AssertionError(f"{launches} C2 launches for two forward and backward calls, not 4")
+    return row
+
+
+# The WavLM cell's batch: 8 utterances of 12-20 s padded to 320000
+# samples, ~10 phoneme ids a second padded to 256; its first step held to
+# the library route by the cell's own limits
+# (portbench/limits/wavlm_large_stp_train_b8_long.json)
+WAVLM_SAMPLES, WAVLM_LABELS = 320000, 256
+WAVLM_LOSS_GAP, WAVLM_GRAD_NORM_GAP = 1.5e-6, 3e-3
+
+
+def wavlm_batch(device) -> dict:
+    gen = torch.Generator().manual_seed(2026)
+    seconds = torch.arange(13, 21)  # one utterance of 13-20 s each, the last at the padded length
+    audio = 0.1 * torch.randn(GA_SHAPE[0], WAVLM_SAMPLES, generator=gen)
+    audio *= torch.arange(WAVLM_SAMPLES)[None, :] < 16000 * seconds[:, None]
+    ids = torch.randint(0, 33, (GA_SHAPE[0], WAVLM_LABELS), generator=gen)
+    ids = ids.masked_fill(torch.arange(WAVLM_LABELS)[None, :] >= 10 * seconds[:, None], -100)
+    return {"audio": audio.to(device), "phonemes_ids": ids.to(device)}
+
+
+def wavlm_route_step(task, batch, init: dict, seed: int) -> dict:
+    """One ``train_step`` from ``init`` and a fresh optimizer at step 0:
+    its loss, each trained leaf's gradient, and the launch counts and
+    WavLM's attention counters over that step alone."""
+    model = task.wav2vec2_for_ctc
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    state = task.init_state(seed)
+    before = wavlm_attention.calls, wavlm_attention.fused_calls, wavlm_attention.bias_elements
+    reset_counts()
+    _, logs = task.train_step(state, batch)
+    launches = read_counts()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    return {"loss": float(logs["train/ctc_loss"]), "grads": grads, "launches": launches,
+            "attention_calls": wavlm_attention.calls - before[0],
+            "fused_calls": wavlm_attention.fused_calls - before[1],
+            "bias_elements": wavlm_attention.bias_elements - before[2]}
+
+
+def grad_gaps(got: dict, want: dict) -> dict:
+    """The gap of each leaf's gradient norm, |got| against |want| as the
+    cell's ``grad_norm_gap`` takes it (the median leaf), the worst leaf's,
+    and the whole gradient's difference over its norm."""
+    if set(got) != set(want):
+        raise AssertionError(f"the routes train other leaves: {sorted(set(got) ^ set(want))}")
+    gaps = {n: abs(float(got[n].norm()) - float(w.norm())) / max(float(w.norm()), 1e-30) for n, w in want.items()}
+    diff = math.sqrt(sum(float((got[n] - w).square().sum()) for n, w in want.items()))
+    whole = math.sqrt(sum(float(w.square().sum()) for w in want.values()))
+    worst = max(gaps, key=gaps.get)
+    return {"grad_norm_gap": float(np.median(list(gaps.values()))), "worst_leaf": worst,
+            "worst_grad_norm_gap": gaps[worst], "grad_diff_over_norm": diff / whole}
+
+
+def phase_wavlm_step(smi: str) -> dict:
+    """WavLM-Large's train step at the cell's shape on the kernel's route
+    and on the library's, from the same weights and step generator (see
+    9c. in the module's docstring)."""
+    b, h, t = GA_SHAPE
+    model = wavlm_for_ctc_from_config(preset="large", seed=0, device="cuda")
+    task = Wav2Vec2STPTask(wav2vec2_for_ctc=model, optimizer=adam(3e-4, betas=(0.5, 0.9)), sample_rate=16000,
+                           freeze_feature_encoder=True, device="cuda")
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = wavlm_batch("cuda")
+    routes = {}
+    for route in ("kernel", "library"):
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.nullcontext() if route == "kernel" else mock.patch.object(gattn, "takes", lambda *a: False):
+            routes[route] = wavlm_route_step(task, batch, init, seed=0)
+        torch.cuda.synchronize()
+        routes[route]["memory_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    kernel, library = routes["kernel"], routes["library"]
+    gaps = grad_gaps(kernel.pop("grads"), library.pop("grads"))
+    loss_gap = abs(kernel["loss"] - library["loss"]) / abs(library["loss"])
+    row = {"phase": "wavlm_step", "card": smi, "B": b, "samples": WAVLM_SAMPLES, "frames": t, "heads": h,
+           "kernel": kernel, "library": library, "loss_gap": loss_gap, **gaps,
+           "limits": {"loss_gap": WAVLM_LOSS_GAP, "grad_norm_gap": WAVLM_GRAD_NORM_GAP}}
+    emit(row)
+    layers = GA_CALLS_PER_STEP
+    want = {"kernel": ({"K1": 0, "K2": 0, "K3": 0, "K4": 0, "C1": 0, "C2": 2 * layers}, layers, layers, 0),
+            "library": ({"K1": 0, "K2": 0, "K3": 0, "K4": 0, "C1": 0, "C2": 0}, layers, 0, layers * b * h * t * t)}
+    for route, r in routes.items():
+        got = (r["launches"], r["attention_calls"], r["fused_calls"], r["bias_elements"])
+        if got != want[route]:
+            raise AssertionError(f"WavLM's {route} route counted {got}, not {want[route]}")
+    if not (math.isfinite(kernel["loss"]) and loss_gap <= WAVLM_LOSS_GAP
+            and gaps["grad_norm_gap"] <= WAVLM_GRAD_NORM_GAP):
+        raise AssertionError(f"WavLM's kernel route differs from the library route: loss {kernel['loss']} "
+                             f"against {library['loss']}, {gaps}")
+    del task, model, init, batch
+    torch.cuda.empty_cache()
+    return row
+
+
 def make_task(device, *, small: bool, optimizer, compute_dtype=None, ratio: float = 1.0):
     """The eben.yaml task.  ``small``: the CPU tests' sizes (discriminator
     q = 4 / min_channels = 8, one STFT resolution 512/50/240); otherwise the
@@ -1233,15 +1473,16 @@ def make_task(device, *, small: bool, optimizer, compute_dtype=None, ratio: floa
 def reset_counts() -> None:
     residual_stack.launches = residual_stack_backward.launches = 0
     framed_dft_magnitude.launches = framed_dft_backward.launches = 0
-    strided_group_conv.launches = 0
+    strided_group_conv.launches = gated_attention.launches = 0
 
 
 def read_counts() -> dict:
-    """The wrappers' launch counters: K1-K4, and C1's entry-point calls
-    (fprop, dgrad and wgrad each count one)."""
+    """The wrappers' launch counters: K1-K4, C1's entry-point calls (fprop,
+    dgrad and wgrad each count one) and C2's (WavLM's gated attention: its
+    forward and its backward each count one)."""
     return {"K1": residual_stack.launches, "K2": residual_stack_backward.launches,
             "K3": framed_dft_magnitude.launches, "K4": framed_dft_backward.launches,
-            "C1": strided_group_conv.launches}
+            "C1": strided_group_conv.launches, "C2": gated_attention.launches}
 
 
 def phase_train_parity() -> None:
@@ -1289,7 +1530,7 @@ def phase_train_parity() -> None:
         raise AssertionError("the train step's losses on the card differ from the CPU's")
     if bad:
         raise AssertionError("the train step's parameters on the card differ from the CPU's")
-    if counts != {"K1": 6, "K2": 6, "K3": 2, "K4": 2, "C1": 0}:  # float32: the MelGAN convs on cuDNN
+    if counts != {"K1": 6, "K2": 6, "K3": 2, "K4": 2, "C1": 0, "C2": 0}:  # float32: the MelGAN convs on cuDNN
         raise AssertionError(f"unexpected kernel launches in one small train step: {counts}")
 
 
@@ -1356,7 +1597,7 @@ def phase_train() -> dict:
     # enhanced only, once for the STFT loss's balancing norm and once in
     # the backward of Σλ·L); C1 32 (SG_CALLS_PER_STEP's calls of the four
     # MelGAN layers: 12 fprop, 16 dgrad, 4 wgrad)
-    want = {**{k: 6 * TRAIN_STEPS for k in ("K1", "K2", "K3", "K4")}, "C1": C1_PER_STEP * TRAIN_STEPS}
+    want = {**{k: 6 * TRAIN_STEPS for k in ("K1", "K2", "K3", "K4")}, "C1": C1_PER_STEP * TRAIN_STEPS, "C2": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts} on the main path, expected {want}")
     return out
@@ -1480,7 +1721,7 @@ def eval_step_parity(cpu, gpu, states, batch, label: str) -> tuple:
         raise AssertionError(f"the eval step's losses on the card differ from the CPU's ({label})")
     if not (got["enhanced"].shape == want["enhanced"].shape and enh_err <= 1e-4 * scale):
         raise AssertionError(f"the eval step's enhanced audio on the card differs from the CPU's ({label})")
-    if counts != {"K1": 6, "K2": 0, "K3": 6, "K4": 0, "C1": 0}:
+    if counts != {"K1": 6, "K2": 0, "K3": 6, "K4": 0, "C1": 0, "C2": 0}:
         raise AssertionError(f"unexpected kernel launches in one eval step ({label}): {counts}")
     return stacks, dfts
 
@@ -1724,8 +1965,9 @@ def phase_cli(run_dir: str) -> dict:
 
     def want(steps, val_batches, test_batches):
         fit = {"K1": 6 * (steps + val_batches), "K2": 6 * steps, "K3": 6 * (steps + val_batches),
-               "K4": 6 * steps, "C1": C1_PER_STEP * steps}
-        return {"fit": fit, "test": {"K1": 6 * test_batches, "K2": 0, "K3": 6 * test_batches, "K4": 0, "C1": 0}}
+               "K4": 6 * steps, "C1": C1_PER_STEP * steps, "C2": 0}
+        return {"fit": fit, "test": {"K1": 6 * test_batches, "K2": 0, "K3": 6 * test_batches, "K4": 0, "C1": 0,
+                                     "C2": 0}}
 
     EBENTask.train_step, EBENTask.eval_step = timed_train_step, timed_eval_step
     EBENTask.eval_metrics = timed(eval_metrics, "metrics")
@@ -1849,7 +2091,7 @@ def phase_pad_short() -> dict:
     emit(row)
     if not (row["T_batch"] == 1024 and max(row["lengths"]) < 1024 and short):
         raise AssertionError(f"the pad collate's batch did not reach T <= fft / 2: {row}")
-    if counts != {"K1": 6, "K2": 6, "K3": 6, "K4": 3, "C1": 0}:
+    if counts != {"K1": 6, "K2": 6, "K3": 6, "K4": 3, "C1": 0, "C2": 0}:
         raise AssertionError(f"unexpected kernel launches on the pad-collated batch: {counts}")
     if not (loss_err <= 1e-4 and not bad and len(out["grads"]) == len(grads_cpu)):
         raise AssertionError(f"the pad-collated batch's loss or gradients on the card differ from the CPU's: {row}")
@@ -2375,8 +2617,8 @@ def phase_cli_noisybwe(run_dir: str) -> dict:
     val, tests = CLI_VAL_BATCHES, CLI_TEST_BATCHES
     want = {"fit": {"K1": 6 * (2 * CLI_STEPS_PER_EPOCH + 2 * 2 * val), "K2": 6 * 2 * CLI_STEPS_PER_EPOCH,
                     "K3": 6 * (2 * CLI_STEPS_PER_EPOCH + 2 * val), "K4": 6 * 2 * CLI_STEPS_PER_EPOCH,
-                    "C1": C1_PER_STEP * 2 * CLI_STEPS_PER_EPOCH},
-            "test": {"K1": 6 * 2 * tests, "K2": 0, "K3": 6 * tests, "K4": 0, "C1": 0}}
+                    "C1": C1_PER_STEP * 2 * CLI_STEPS_PER_EPOCH, "C2": 0},
+            "test": {"K1": 6 * 2 * tests, "K2": 0, "K3": 6 * tests, "K4": 0, "C1": 0, "C2": 0}}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} on the noisy CLI's fit and test, expected {want}")
     if progress != {"epoch": 1, "global_step": 4} or not have_last or len(steps["train_step_ms"]) != 4:
@@ -2984,7 +3226,7 @@ def phase_spkv_embed() -> dict:
                "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
                "profile": prof, "embedding_finite": bool(torch.isfinite(emb).all())}
         emit(row)
-        want = {"K1": 0, "K2": 0, "K3": SPKV_WARMUP + SPKV_BATCHES, "K4": 0, "C1": 0}
+        want = {"K1": 0, "K2": 0, "K3": SPKV_WARMUP + SPKV_BATCHES, "K4": 0, "C1": 0, "C2": 0}
         if counts != want or not row["embedding_finite"] or emb.shape != (SPKV_B, model.config.embed_dim):
             raise AssertionError(f"the {dtype} embedder's launches {counts} (want {want}), output {tuple(emb.shape)}")
         out[dtype] = row
@@ -3075,7 +3317,7 @@ def phase_cli_spkv() -> dict:
         m = r["metrics"]
         if set(m) != keys or not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"the SPKV CLI's test metrics {m}")
-        want = {"K1": 0, "K2": 0, "K3": 2 * SPKV_CLI_TRIALS, "K4": 0, "C1": 0}
+        want = {"K1": 0, "K2": 0, "K3": 2 * SPKV_CLI_TRIALS, "K4": 0, "C1": 0, "C2": 0}
         if r["trials"] != SPKV_CLI_TRIALS or r["launches"] != want:
             raise AssertionError(f"the SPKV CLI ran {r['trials']} trials, launches {r['launches']} (want {want})")
     return out
@@ -3777,7 +4019,7 @@ def phase_hub_enhance() -> dict:
         raise AssertionError("the generator loaded from the hub layout differs from the one saved")
     if not max(errs) <= 1e-5:
         raise AssertionError(f"the enhancement script's output differs from the direct forward: {errs}")
-    if launches != {"K1": 6 * HUB_UTTERANCES, "K2": 0, "K3": 0, "K4": 0, "C1": 0}:
+    if launches != {"K1": 6 * HUB_UTTERANCES, "K2": 0, "K3": 0, "K4": 0, "C1": 0, "C2": 0}:
         raise AssertionError(f"kernel launches {launches} enhancing {HUB_UTTERANCES} utterances")
     return out
 
@@ -4108,9 +4350,9 @@ def phase_dp_parity(train: dict) -> dict:
         raise AssertionError(f"the two-rank step differs from the one-process step: losses {loss_err}, {bad}")
     if not all(r["losses_finite"] for r in ranks):
         raise AssertionError("a loss of the two-rank bf16 steps is not finite")
-    if any(r["parity_launches"] != {"K1": 6, "K2": 6, "K3": 6, "K4": 6, "C1": 0} for r in ranks):
+    if any(r["parity_launches"] != {"K1": 6, "K2": 6, "K3": 6, "K4": 6, "C1": 0, "C2": 0} for r in ranks):
         raise AssertionError(f"kernel launches of the parity step: {[r['parity_launches'] for r in ranks]}")
-    if any(p != {"K1": 6, "K2": 6, "K3": 6, "K4": 6, "C1": C1_PER_STEP} for p in per_step):
+    if any(p != {"K1": 6, "K2": 6, "K3": 6, "K4": 6, "C1": C1_PER_STEP, "C2": 0} for p in per_step):
         raise AssertionError(f"kernel launches a step on the ranks: {per_step}")
     return out
 
@@ -4358,7 +4600,7 @@ def phase_weights_day(smi: str) -> dict:
                 for line in (Path(tmp) / "REAL_DATA.md").read_text().splitlines()
                 if line.startswith("| ") and not line.startswith("| config")}
     executed = rows.get("spkv_ecapa2_eval", {}).get("dry_run_executed", {})
-    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in ("K1", "K2", "K3", "K4", "C1")}
+    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in ("K1", "K2", "K3", "K4", "C1", "C2")}
     env_after = {k: os.environ.get(k) for k in weights_day.STAGED_ENV}
     out = {"phase": "weights_day", "card": smi, "wall_s": wall, "stages": stages, "launches": launches,
            "manifest_keys": sorted(manifest), "raw_bytes": raw_bytes, "executed": executed, "rows": rows,
@@ -4371,9 +4613,9 @@ def phase_weights_day(smi: str) -> dict:
         raise AssertionError(f"the executed spkv_ecapa2_eval row: {rows.get('spkv_ecapa2_eval')}")
     if len(rows) != 5 or any(rows[n] != {"dry_run": "compose+instantiate ok"} for n in rows if n != "spkv_ecapa2_eval"):
         raise AssertionError(f"the parity rows: {rows}")
-    want = {"fetch": {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "C1": 0},
-            "convert": {"K1": 6, "K2": 0, "K3": 1, "K4": 0, "C1": 0},
-            "parity": {"K1": 0, "K2": 0, "K3": 2 * WEIGHTS_DAY_TRIALS, "K4": 0, "C1": 0}}
+    want = {"fetch": {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "C1": 0, "C2": 0},
+            "convert": {"K1": 6, "K2": 0, "K3": 1, "K4": 0, "C1": 0, "C2": 0},
+            "parity": {"K1": 0, "K2": 0, "K3": 2 * WEIGHTS_DAY_TRIALS, "K4": 0, "C1": 0, "C2": 0}}
     if {k: st["launches"] for k, st in stages.items()} != want:
         raise AssertionError(f"the runbook's launches by stage {stages} (want {want})")
     if env_after != env:
@@ -4408,6 +4650,8 @@ def main() -> int:
     k2_rows = phase_k2_parity()
     dft_rows = phase_k3_k4_parity()
     sg_rows = phase_sgconv_parity(smi)
+    ga_row = phase_gated_attention_parity(smi)
+    wavlm_row = phase_wavlm_step(smi)
     pad_short = phase_pad_short()
     phase_train_parity()
     train = phase_train()
@@ -4442,8 +4686,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vibravox_cli_dp_") as cli_dp_dir:
         phase_cli_dp(cli_dp_dir)
     weights_day = phase_weights_day(smi)
-    emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, serve_launches, train, train_profile,
-                      evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day))
+    emit(kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, ga_row, wavlm_row, serve_launches, train,
+                      train_profile, evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day))
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4497,15 +4741,42 @@ def c1_entry(sg_rows, train, train_profile, launches, launches_by_path, smi) -> 
                       "reference's largest magnitude"}
 
 
-def kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, serve_launches, train, train_profile,
-                 evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day) -> dict:
-    """All five kernels: K1-K4, then C1 (``c1_entry``).  ``ms``, ``plain_ms``, ``library_ms`` and
+def c2_entry(ga_row, wavlm_row, launches_by_path, smi) -> dict:
+    """C2's entry of the ``kernels`` line: ms a WavLM train step (24 forward
+    and 24 backward calls at the cell's shape) of the kernel, the library
+    route (SDPA on the materialised bias) and the plain twin, beside the
+    bound at the float32 FMAs' 67 TFLOP/s, from phase
+    gated_attention_parity's row; ``launches`` and ``launches_per_step``
+    from phase wavlm_step's WavLM-Large train step on the kernel's route,
+    C2's main path (every other path of this script runs no WavLM)."""
+    step = ga_row["per_train_step"]
+    launches = wavlm_row["kernel"]["launches"]["C2"]
+    return {"name": "gated_attention", "route": "cuda",
+            "source": "vibravox_tpu_torch/ops/csrc/gated_attention.cu",
+            "replaces": None, "note": "no TPU kernel: the JAX package has no WavLM",
+            "launches": launches, "launches_by_path": launches_by_path,
+            "launches_per_step": launches,
+            "max_abs_err": max(ga_row["err_over_scale"].values()),
+            "max_err_over_tol": max(ga_row["err_over_scale"].values()) / ga_row["tol"],
+            "ms": step["kernel_ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["fma_ops_ms"], "bound_by": "operations at the float32 FMAs' 67 TFLOP/s",
+            "tf32_bound_ms": step["tf32_ops_ms"],
+            "per": "per WavLM train step: 24 layers at B 8, H 16, T 999, float32", "card": smi,
+            "calls": {p: ga_row[p] for p in ("forward", "backward")},
+            "errors": "max_abs_err is the largest of the six outputs' errors against the float64 twin, over "
+                      "its largest magnitude"}
+
+
+def kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, ga_row, wavlm_row, serve_launches, train,
+                 train_profile, evals, cli, noisy, pad_short, stp, cli_stp, spkv, mimi, squim, dp, weights_day) -> dict:
+    """All six kernels: K1-K4, then C1 (``c1_entry``) and C2 (``c2_entry``).  ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` are per train step (batch 32, 2.5 s, bfloat16 networks,
     float32 STFT): each kernel's launches of one step at their shapes,
     measured one by one with CUDA events.  ``launches`` is the count over
-    this slice's main path, the CLI's first run (fit and test);
+    this slice's main path, the CLI's first run (fit and test), and for C2
+    the WavLM-Large train step of phase wavlm_step;
     ``launches_by_path`` has it per path, the timed fit of the train phase
-    included, the STP, Mimi and SQUIM paths, which run none of the four
+    included, that WavLM step on both routes (C2 alone, on the kernel's), the STP, Mimi and SQUIM paths, which run none of the four
     kernels, the hub enhancement script (K1 alone), the CLI tests with
     SQUIM (K1 and K3), the dp_parity ranks' own counts (the timed bf16
     steps, the float32 parity step), the weights-day runbook (K1 and K3),
@@ -4540,10 +4811,12 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, serve_launches, train
                 "cli_squim_noisybwe_test": squim["cli"]["noisybwe"]["launches"][key],
                 "dp_parity_timed_steps_by_rank": [r["launches"][key] for r in dp["bf16"]],
                 "dp_parity_float32_step_by_rank": [r[key] for r in dp["parity"]["launches_by_rank"]],
-                "weights_day": weights_day["launches"][key]}
+                "weights_day": weights_day["launches"][key],
+                "wavlm_train_step": wavlm_row["kernel"]["launches"][key],
+                "wavlm_train_step_library_route": wavlm_row["library"]["launches"][key]}
 
     main_path = {k: cli["fit"]["launches"][k] + cli["test"]["launches"][k]
-                 for k in ("K1", "K2", "K3", "K4", "C1")}
+                 for k in ("K1", "K2", "K3", "K4", "C1", "C2")}
     eval_rows = evals["k1"] + evals["k1_whole_utterance"]
 
     def k1_eval(rows, what):
@@ -4662,6 +4935,7 @@ def kernels_line(smi, k1_rows, k2_rows, dft_rows, sg_rows, serve_launches, train
          "traced_us_per_step": kinds.get("K4 framed_dft_backward"), "card": smi, "detail": k4,
          "errors": "max_abs_err is the error over the largest |dx|"},
         c1_entry(sg_rows, train, train_profile, main_path["C1"], by_path("C1"), smi),
+        c2_entry(ga_row, wavlm_row, by_path("C2"), smi),
     ]}
 
 

@@ -643,3 +643,127 @@ def test_eben_train_step_runs_the_melgan_convs_on_the_kernel(cuda):
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [32, 6, 6, 6, 6]
     assert all(math.isfinite(float(v)) for v in logs.values())
+
+
+# C2, WavLM's gated relative-position attention (ops/gated_attention.py) in
+# IEEE float32 against its float64 plain twin: each output within 5e-5 of
+# its largest magnitude (float32 sums over up to B T terms; the library
+# route, SDPA on the materialised bias, reads the same order of error)
+GA_TOL = 5e-5
+GA_NAMES = ("out", "dq", "dk", "dv", "dgate", "ddiag")
+
+
+def _ga_inputs(b, h, t, device, seed=0):
+    """At the WavLM cell's scale: heads N(0, 1) as views of (B, T, H, 64)
+    projections, the gate in (1, 3), D N(0, 1) as ``rel_attn_embed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h, 64, device=device, generator=gen).transpose(1, 2) for _ in range(3))
+    gate = 1.0 + 2.0 * torch.rand(b, h, t, device=device, generator=gen)
+    diag = torch.randn(h, 2 * t - 1, device=device, generator=gen)
+    dout = torch.randn(b, h, t, 64, device=device, generator=gen)
+    return q, k, v, gate, diag, dout
+
+
+def _ga_grads(fn, q, k, v, gate, diag, dout):
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v, gate, diag)]
+    out = fn(*leaves)
+    return [out.detach(), *torch.autograd.grad(out, leaves, dout)]
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 130, 999])
+def test_gated_attention_matches_the_float64_twin(t, cuda):
+    from vibravox_tpu_torch.ops import gated_attention as ga
+
+    inputs = _ga_inputs(2, 3, t, cuda, seed=t)
+    before = ga.gated_attention.launches
+    got = _ga_grads(ga.gated_attention, *inputs)
+    assert ga.gated_attention.launches - before == 2
+    want = _ga_grads(ga.plain_gated_attention, *(x.double() for x in inputs))
+    for name, g, w in zip(GA_NAMES, got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        scale = max(w.abs().max().item(), 1.0)
+        assert (g.double() - w).abs().max().item() <= GA_TOL * scale, name
+
+
+def test_gated_attention_is_bit_equal_twice(cuda):
+    from vibravox_tpu_torch.ops import gated_attention as ga
+
+    inputs = _ga_inputs(2, 3, 999, cuda, seed=7)
+    first, second = _ga_grads(ga.gated_attention, *inputs), _ga_grads(ga.gated_attention, *inputs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_gated_attention_rejects_what_the_kernel_does_not_take(cuda):
+    from vibravox_tpu_torch.ops import gated_attention as ga
+
+    q, k, v, gate, diag, _ = _ga_inputs(1, 2, 100, cuda)
+    with torch.no_grad():
+        assert ga.gated_attention(q, k, v, gate, diag).shape == (1, 2, 100, 64)
+        with pytest.raises(TypeError, match="float32 CUDA input"):
+            ga.gated_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), gate, diag)
+        with pytest.raises(ValueError, match="takes"):
+            ga.gated_attention(q[..., :32], k[..., :32], v[..., :32], gate, diag)
+        with pytest.raises(ValueError, match="diag must be"):
+            ga.gated_attention(q, k, v, gate, diag[:, :100])
+        with pytest.raises(TypeError, match="gate must be float32"):
+            ga.gated_attention(q, k, v, gate.double(), diag)
+
+
+def _wavlm_on(device, **kw):
+    from vibravox_tpu_torch.models.wavlm import wavlm_for_ctc_from_config
+
+    return wavlm_for_ctc_from_config(preset="tiny", seed=3, device=device, hidden_size=128, num_attention_heads=2,
+                                     hidden_dropout=0.0, activation_dropout=0.0, feat_proj_dropout=0.0,
+                                     mask_time_prob=0.0, layerdrop=0.0, **kw)
+
+
+@pytest.mark.parametrize("fault", ["gate_off", "relpos_off"])
+def test_wavlm_faults_reach_the_kernel(fault, cuda, monkeypatch):
+    """A fault planted through ``portbench/wavlm_faults.planted`` (every gate
+    1, or P 0) runs on the kernel (heads of 64, float32 on CUDA) and moves
+    its logits as it moves the library route's."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from portbench import wavlm_faults
+    from vibravox_tpu_torch.models import wavlm
+    from vibravox_tpu_torch.ops import gated_attention as ga
+
+    model = _wavlm_on(cuda)
+    audio = torch.randn(2, 16000, generator=torch.Generator().manual_seed(1)).to(cuda)
+    counts = wavlm.wavlm_attention
+    with torch.no_grad(), strict_float32():
+        sound = model(audio)
+        before = counts.fused_calls, counts.bias_elements
+        with wavlm_faults.planted(fault):
+            faulty = model(audio)
+            assert (counts.fused_calls - before[0], counts.bias_elements - before[1]) == (3, 0)
+            monkeypatch.setattr(ga, "takes", lambda *a: False)
+            library = model(audio)
+    scale = library.abs().max().item()
+    assert (faulty - library).abs().max().item() <= 1e-4 * scale
+    assert (faulty - sound).abs().max().item() > 1e-2 * scale
+
+
+def test_wavlm_large_step_runs_the_kernel(cuda):
+    """One forward and backward of the large preset (b2, 4 s): 24 kernel
+    calls a direction, no gated bias made, finite gradients that reach the
+    gate's weights and ``rel_attn_embed``."""
+    from vibravox_tpu_torch.models import wavlm
+    from vibravox_tpu_torch.ops import gated_attention as ga
+
+    model = wavlm.wavlm_for_ctc_from_config(preset="large", seed=0, device=cuda)
+    audio = torch.randn(2, 64000, generator=torch.Generator().manual_seed(2)).to(cuda)
+    counts = wavlm.wavlm_attention
+    before = counts.calls, counts.fused_calls, counts.bias_elements, ga.gated_attention.launches
+    with strict_float32():
+        logits = model(audio, train=True, generator=torch.Generator(cuda).manual_seed(0),
+                       freeze_feature_encoder=True)
+        logits.square().mean().backward()
+    torch.cuda.synchronize()
+    assert (counts.calls - before[0], counts.fused_calls - before[1], counts.bias_elements - before[2],
+            ga.gated_attention.launches - before[3]) == (24, 24, 0, 48)
+    attn0 = model.wavlm.encoder.layers[0].attention
+    for p in (attn0.rel_attn_embed.weight, attn0.gru_rel_pos_linear.weight, attn0.gru_rel_pos_const):
+        assert p.grad is not None and torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0

@@ -22,9 +22,16 @@ is ``portbench/reference/wavlm.py``.
   layer 0's ungated P.  Each layer's gate, (B, H, T, 1), comes from x (not
   from q): x in heads of 64 through ``gru_rel_pos_linear`` (64 -> 8),
   summed in pairs of 4 to (a, b) = sigmoid(.), gate = a (b c_h - 1) + 2
-  with ``gru_rel_pos_const`` c.  The gated bias goes to
-  ``F.scaled_dot_product_attention`` as its float ``attn_mask``, which
-  carries its gradient (``wavlm_attention``).
+  with ``gru_rel_pos_const`` c.  Two routes, chosen by what the call shows
+  (``ops/gated_attention.py::takes``): a CUDA float32 call with heads of 64
+  runs the hand-written kernel ``gated_attention`` on the gate and P's
+  2T - 1 diagonals (P is Toeplitz; layer 0 takes them from P's first column
+  and row, so the gradient reaches ``rel_attn_embed`` through P, and every
+  later layer reuses them), forming the bias per tile, forward and
+  backward (``fused_wavlm_attention``); every other call (the CPU,
+  ``compute_dtype="bfloat16"``, other head widths) gives the gated bias,
+  (B, H, T, T), to ``F.scaled_dot_product_attention`` as its float
+  ``attn_mask``, which carries its gradient (``wavlm_attention``).
 * LayerDrop: one gate a layer, drawn for every layer; layer 0, which makes
   P, is never dropped (HF: ``i > 0``).  As in the port's wav2vec2, a
   dropped layer is computed and its output not taken, so the step reads no
@@ -47,11 +54,13 @@ Under tensor parallelism over ``model`` the model is refused
 (``parallel/tp.py``): the split would have to cut the gate's constant, the
 bucket table and P to a rank's heads as well, which is not implemented.
 
-The profiler spans ``wavlm.relpos`` (layer 0's bucket table and lookup)
-and ``wavlm.gate`` (each layer's gate and gated bias) open inside the STP
-task's ``stp.forward``; ``wavlm_attention.calls`` and
-``wavlm_attention.bias_elements`` count the attention's calls and the
-B H T T elements of gated bias they were given.
+The profiler spans ``wavlm.relpos`` (layer 0's bucket table and lookup,
+and on the kernel's route P's diagonals) and ``wavlm.gate`` (each layer's
+gate, and on the library's route the gated bias) open inside the STP
+task's ``stp.forward``.  ``wavlm_attention.calls`` counts the attention's
+calls on both routes, ``wavlm_attention.fused_calls`` those on the
+kernel, and ``wavlm_attention.bias_elements`` the B H T T elements of
+gated bias made for the library's.
 """
 
 from __future__ import annotations
@@ -79,12 +88,14 @@ from vibravox_tpu_torch.models.wav2vec2 import (
     ctc_from_pretrained,
     encode_features,
 )
+from vibravox_tpu_torch.ops import gated_attention as fused
 
 __all__ = [
     "WavLMConfig",
     "WavLMForCTC",
     "TINY_WAVLM_CONFIG",
     "relative_position_bucket",
+    "fused_wavlm_attention",
     "wavlm_attention",
     "wavlm_for_ctc_from_config",
     "wavlm_for_ctc_from_pretrained",
@@ -202,7 +213,21 @@ def wavlm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: tor
 
 
 wavlm_attention.calls = 0
+wavlm_attention.fused_calls = 0
 wavlm_attention.bias_elements = 0
+
+
+def fused_wavlm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gate: torch.Tensor,
+                          diagonals: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d) + gate * P) v for q, k, v (B, H, T, d), the
+    gate (B, H, T, 1) and P's diagonals (H, 2T - 1), on the hand-written
+    kernel (``ops/gated_attention.py``), which forms the bias per tile and
+    differentiates the gate and the diagonals.  Counts its calls in
+    ``wavlm_attention.calls`` and ``wavlm_attention.fused_calls``."""
+    wavlm_attention.calls += 1
+    wavlm_attention.fused_calls += 1
+    b, h, t, _ = q.shape
+    return fused.gated_attention(q, k, v, gate.reshape(b, h, t), diagonals)
 
 
 class WavLMAttention(Attention):
@@ -220,21 +245,27 @@ class WavLMAttention(Attention):
 
     def forward(self, x: torch.Tensor, position: Optional[torch.Tensor], dtype: Optional[torch.dtype]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, T, hidden), the layer's normed input; ``position``: layer
-        0's P, or None in layer 0, which makes it.  Returns (out, P)."""
+        """x (B, T, hidden), the layer's normed input; ``position``: what
+        layer 0 made of P (P itself, or on the kernel's route its
+        diagonals), or None in layer 0, which makes it.  Returns (out,
+        position)."""
         b, t, _ = x.shape
-        if position is None:
-            with span("wavlm.relpos"):
-                position = relative_position_table(self.rel_attn_embed, t, self.num_buckets, self.max_distance)
 
         def heads(y):
             return y.view(b, t, -1, self.head_dim).transpose(1, 2)
 
         q, k, v = (heads(_linear(x, p, dtype)) for p in (self.q_proj, self.k_proj, self.v_proj))
+        kernel = fused.takes(q.device.type, q.dtype, self.head_dim)
+        if position is None:
+            with span("wavlm.relpos"):
+                position = relative_position_table(self.rel_attn_embed, t, self.num_buckets, self.max_distance)
+                if kernel:
+                    position = fused.toeplitz_diagonals(position)
         with span("wavlm.gate"):
             gate = relative_position_gate(x, self.gru_rel_pos_linear, self.gru_rel_pos_const, dtype)
-            bias = (gate * position).to(q.dtype)
-        attn = wavlm_attention(q, k, v, bias)
+            if not kernel:
+                bias = (gate * position).to(q.dtype)
+        attn = fused_wavlm_attention(q, k, v, gate, position) if kernel else wavlm_attention(q, k, v, bias)
         return _linear(attn.transpose(1, 2).reshape(b, t, -1), self.out_proj, dtype), position
 
 

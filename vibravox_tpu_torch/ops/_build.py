@@ -24,8 +24,9 @@ from typing import Dict
 
 __all__ = ["build", "build_all", "load", "SOURCES"]
 
-# K1, K2, K3 and K4; the MelGAN discriminator's strided grouped convs
-SOURCES = ("fused_residual", "fused_residual_bwd", "framed_dft", "strided_group_conv")
+# K1, K2, K3 and K4; the MelGAN discriminator's strided grouped convs (C1);
+# WavLM's gated relative-position attention (C2)
+SOURCES = ("fused_residual", "fused_residual_bwd", "framed_dft", "strided_group_conv", "gated_attention")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
